@@ -1,0 +1,245 @@
+"""Host half of the encode engine that the port's slice needs.
+
+Copied from ``av1tpu/engine_tpu.py`` (a module that imports JAX at
+module scope): the GOP/keyframe decisions (``_scene_cut``,
+``_decide_key``, ``_classify_frame``, ``_gop_predictable``), plane
+padding (``_pad_planes`` with ``legacy.core.intra_frame.pad_plane``)
+and ``encode_stream`` on its single-frame dispatch path
+(``chunk == 1``).  Behaviour is unchanged for ``golden=False``, the only
+configuration the port accepts; a later change lifts these into a
+JAX-free module shared by both engines.
+"""
+
+from __future__ import annotations
+
+import itertools
+from collections import deque
+from typing import Optional
+
+import numpy as np
+
+from av1tpu.config import TpuEncoderConfig
+from av1tpu.encoder import ratectrl
+from av1tpu.utils.testsrc import Frame
+
+
+def pad_plane(plane: np.ndarray, block: int) -> np.ndarray:
+    """Edge-replicate pad to a multiple of ``block``.  Copied from
+    av1tpu/legacy/core/intra_frame.py."""
+    h, w = plane.shape
+    hp = -(-h // block) * block
+    wp = -(-w // block) * block
+    return np.pad(plane, ((0, hp - h), (0, wp - w)), mode="edge")
+
+
+class TorchEngine:
+    """GOP-level host logic shared by the port's engines.  Subclasses
+    provide ``_submit`` (dispatch one frame to the device) and
+    ``_finalize`` (materialize and entropy-code it)."""
+
+    def __init__(self, cfg: Optional[TpuEncoderConfig] = None):
+        self.cfg = cfg or TpuEncoderConfig()
+        self._ref_dev = None       # (y, u, v) int32 recon tensors on device
+        self._frame_idx = 0
+        self._prev_thumb = None
+        self._deep_gop = False
+
+    def start_stream(self) -> None:
+        """Reset GOP state (call once per input video)."""
+        self._ref_dev = None
+        self._frame_idx = 0
+        self._prev_thumb = None
+
+    def _scene_cut(self, frame: Frame) -> bool:
+        """Mean abs diff of 16x-decimated luma vs the previous frame."""
+        thumb = frame.y[::16, ::16].astype(np.int32)
+        prev = self._prev_thumb
+        self._prev_thumb = thumb
+        if prev is None or prev.shape != thumb.shape:
+            return False
+        mad = np.abs(thumb - prev).mean()
+        scale = 1 << (frame.bit_depth - 8)
+        return mad > 28.0 * scale
+
+    def _decide_key(self, frame: Frame, force_key: bool = False) -> bool:
+        """Keyframe decision (keyint + scene cut); advances GOP state."""
+        keyint = max(1, self.cfg.keyint)
+        cut = self._scene_cut(frame)
+        is_key = (force_key or self._ref_dev is None
+                  or (self._frame_idx % keyint == 0) or cut)
+        self._frame_idx += 1
+        return is_key
+
+    @staticmethod
+    def _gop_predictable(frame: Frame, next_frame) -> bool:
+        """Lookahead-1 GOP predictability for keyframe bit allocation:
+        global translation from 1-D projections, then the
+        motion-compensated SAD against the content's 1px-misprediction
+        SAD scale."""
+        y0 = np.asarray(frame.y)
+        y1 = np.asarray(next_frame.y)
+        if y0.shape != y1.shape:
+            return False
+        h, w = y0.shape
+        if h < 64 or w < 64:
+            return False
+        a = y0.astype(np.float64)
+        b = y1.astype(np.float64)
+        R = 24
+        py0, py1 = a.mean(axis=1), b.mean(axis=1)
+        px0, px1 = a.mean(axis=0), b.mean(axis=0)
+
+        def best_shift(p0, p1):
+            n = p0.shape[0]
+            lo = min(R, n // 4)
+            best, bs = None, 0
+            for s in range(-lo, lo + 1):
+                if s >= 0:
+                    d = np.abs(p0[s:] - p1[:n - s]) if s else \
+                        np.abs(p0 - p1)
+                else:
+                    d = np.abs(p0[:n + s] - p1[-s:])
+                m = d.mean()
+                if best is None or m < best:
+                    best, bs = m, s
+            return bs
+
+        dy = best_shift(py0, py1)
+        dx = best_shift(px0, px1)
+        sub = 4
+
+        def sad_at(sy, sx):
+            y0a = a[max(sy, 0):h + min(sy, 0), max(sx, 0):w + min(sx, 0)]
+            y1a = b[max(-sy, 0):h - max(sy, 0),
+                    max(-sx, 0):w - max(sx, 0)]
+            return np.abs(y0a[::sub, ::sub] - y1a[::sub, ::sub]).mean()
+
+        sad = min(sad_at(dy, dx), sad_at(0, 0))
+        act = np.abs(a[::sub, 1:] - a[::sub, :-1]).mean()
+        scale = float(1 << (frame.bit_depth - 8))
+        return bool(sad < 0.6 * act + 0.25 * scale)
+
+    def _classify_frame(self, frame: Frame, next_frame) -> str:
+        """Lookahead-1 classification: 'key' | 'inter' | 'flash' (a
+        one-frame scene codes as a non-reference inter frame)."""
+        keyint = max(1, self.cfg.keyint)
+        thumb = frame.y[::16, ::16].astype(np.int32)
+        prev = self._prev_thumb
+        scale = 1 << (frame.bit_depth - 8)
+        thr = 28.0 * scale
+        cut = (prev is not None and prev.shape == thumb.shape
+               and np.abs(thumb - prev).mean() > thr)
+        forced = (self._ref_dev is None
+                  or (self._frame_idx % keyint == 0))
+        self._frame_idx += 1
+        if cut and not forced and next_frame is not None:
+            nt = next_frame.y[::16, ::16].astype(np.int32)
+            if (nt.shape == thumb.shape
+                    and np.abs(nt - thumb).mean() > thr
+                    and np.abs(nt - prev).mean() <= thr):
+                return "flash"
+        self._prev_thumb = thumb
+        return "key" if forced or cut else "inter"
+
+    @staticmethod
+    def _pad_planes(frame: Frame, block: int):
+        """Pad Y to block multiples and chroma to half that."""
+        dtype = np.uint8 if frame.bit_depth == 8 else np.uint16
+        yp = pad_plane(frame.y.astype(dtype), block)
+        hp, wp = yp.shape
+        up = np.zeros((hp // 2, wp // 2), dtype)
+        vp = np.zeros((hp // 2, wp // 2), dtype)
+        uu = frame.u.astype(dtype)
+        vv = frame.v.astype(dtype)
+        up[:uu.shape[0], :uu.shape[1]] = uu
+        vp[:vv.shape[0], :vv.shape[1]] = vv
+        if uu.shape[0] < up.shape[0]:
+            up[uu.shape[0]:, :] = up[uu.shape[0] - 1:uu.shape[0], :]
+            vp[vv.shape[0]:, :] = vp[vv.shape[0] - 1:vv.shape[0], :]
+        if uu.shape[1] < up.shape[1]:
+            up[:, uu.shape[1]:] = up[:, uu.shape[1] - 1:uu.shape[1]]
+            vp[:, vv.shape[1]:] = vp[:, vv.shape[1] - 1:vv.shape[1]]
+        return yp, up, vp
+
+    def encode_keyframe(self, frame: Frame, qindex: int) -> bytes:
+        """Encode one frame as an intra keyframe; returns its payload."""
+        payload, _ = self._finalize(self._submit(frame, qindex,
+                                                 force_key=True))
+        return payload
+
+    def encode_smoke_frame(self, frame: Frame) -> bytes:
+        """Startup self-test payload."""
+        return self.encode_keyframe(frame, qindex=96)
+
+    def encode_stream(self, frames, qindex):
+        """Pipelined GOP encode over an iterable of Frames, one frame per
+        dispatch.  ``qindex`` is an int or a ratectrl controller.  Yields
+        (payload, is_keyframe) in order; up to two dispatches are in
+        flight while the host entropy-codes the oldest."""
+        rate = qindex if hasattr(qindex, "qindex_for") else None
+        frames = iter(frames)
+        first = next(frames, None)
+        if first is None:
+            return
+        frames = itertools.chain([first], frames)
+        pending = deque()
+        depth = 2
+        idx = 0
+        fbytes = max(1, first.width * first.height *
+                     (2 if first.bit_depth > 8 else 1) * 3 // 2)
+        L = max(2, min(16, 256_000_000 // fbytes))
+        win = deque()
+        wcs = deque()
+        _ds = [None]
+
+        def _refill():
+            while len(win) < L:
+                f = next(frames, None)
+                if f is None:
+                    break
+                cst, _ds[0] = ratectrl.LookaheadRateController.\
+                    frame_complexity(f.y, _ds[0])
+                win.append(f)
+                wcs.append(cst)
+
+        def finalize_one():
+            payload, is_key = self._finalize(pending.popleft())
+            if rate:
+                rate.record(len(payload) * 8)
+            return payload, is_key
+
+        _refill()
+        while win:
+            frame = win.popleft()
+            cur_c = wcs.popleft()
+            _refill()
+            nxt = win[0] if win else None
+            if rate is not None:
+                try:
+                    q = rate.qindex_for(idx, c=cur_c, window=list(wcs))
+                except TypeError:  # non-lookahead controller
+                    q = rate.qindex_for(idx)
+            else:
+                q = qindex
+            idx += 1
+            kind = self._classify_frame(frame, nxt)
+            if kind != "key" and self._deep_gop:
+                q = min(255, q + 16)
+            if kind == "key":
+                # keyframe quality boost (deeper for predictable GOPs)
+                self._deep_gop = (nxt is not None
+                                  and self._gop_predictable(frame, nxt))
+                if self._deep_gop:
+                    kq = max(0, q - min(88, max(8, (3 * q) // 4)))
+                else:
+                    kq = max(0, q - min(48, max(8, q // 3)))
+                pending.append(self._submit(frame, kq, is_key=True))
+            elif kind == "flash":
+                pending.append(self._submit(frame, q, is_key=False,
+                                            refresh=False))
+            else:
+                pending.append(self._submit(frame, q, is_key=False))
+            while len(pending) > depth:
+                yield finalize_one()
+        while pending:
+            yield finalize_one()

@@ -1,0 +1,136 @@
+"""PyTorch port (av1tpu_torch) vs the JAX package: the P-frame encoder.
+
+Both packages encode the same seeded numpy frames from the same numpy
+reference planes (handed to the port through state_from_numpy).  The
+expectation is exact; where the reference decides in float32 (forward
+transforms, keyframe mode RD) a summation-order near-tie may flip a
+decision, so the tests require that at least 99% of blocks agree on
+every decision and level, and that agreeing blocks reconstruct
+identically.  At these sizes 99% means every block.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from av1tpu.specav1 import jax_inter
+from av1tpu.utils import testsrc
+from av1tpu_torch.spec_engine import state_from_numpy
+from av1tpu_torch.specav1 import torch_inter
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def grainy_planes(w, h, i, rng, bd=8):
+    """testsrc2 + seeded grain, SB-padded like the engine pads."""
+    f = testsrc.testsrc2(w, h, i, bit_depth=bd)
+    mx = (1 << bd) - 1
+    y = np.clip(f.y.astype(np.int32) + rng.integers(-6, 7, f.y.shape), 0, mx)
+    ph, pw = (h + 63) & ~63, (w + 63) & ~63
+    dt = np.uint8 if bd == 8 else np.uint16
+    return tuple(np.pad(p, ((0, (ph - h) // s), (0, (pw - w) // s)),
+                        mode="edge").astype(dt)
+                 for p, s in ((y, 1), (f.u, 2), (f.v, 2)))
+
+
+def block_agreement(ref, got, grids, luma, chroma, gh, gw):
+    """Fraction of the gh x gw 32x32 blocks on which every grid entry
+    (indices ``grids``, arrays with the block index first or (gh, gw)
+    leading) and every pixel of the luma/chroma planes (indices
+    ``luma``/``chroma``) agree."""
+    nb = gh * gw
+    ok = np.ones(nb, bool)
+    for i in grids:
+        a, b = np.asarray(ref[i]).reshape(nb, -1), got[i].reshape(nb, -1)
+        ok &= (a == b).all(1)
+    for idx, n in ((luma, 32), (chroma, 16)):
+        for i in idx:
+            eq = (np.asarray(ref[i]) == got[i])[:gh * n, :gw * n]
+            ok &= eq.reshape(gh, n, gw, n).all((1, 3)).reshape(-1)
+    return ok.mean()
+
+
+@pytest.mark.parametrize("w,h,bd,q", [(128, 64, 8, 96), (128, 144, 8, 96),
+                                      (128, 64, 10, 255)])
+def test_inter_frame_matches_jax(w, h, bd, q):
+    """P-frame encoder, all 16 outputs, from the same reference planes:
+    144 rows take the 16px bottom-strip path; 10-bit at qindex 255 runs
+    the int32 RD costs at their largest."""
+    rng = np.random.default_rng(1)
+    ref = [p.astype(np.int32) for p in grainy_planes(w, h, 0, rng, bd)]
+    src = grainy_planes(w, h, 3, rng, bd)
+    want = jax_inter._encode_frame(*(jnp.asarray(p) for p in src),
+                                   *(jnp.asarray(p) for p in ref), q, bd,
+                                   th=h, tw=w)
+    dt = np.uint8 if bd == 8 else np.int16
+    got = torch_inter.encode_frame(
+        *(torch.from_numpy(p.astype(dt)) for p in src),
+        *state_from_numpy(*ref, "cpu"), q, bd, th=h, tw=w)
+    got = [t.numpy() for t in got]
+    assert len(got) == len(want) == 16
+    for a, b in zip(want, got):
+        assert np.asarray(a).shape == b.shape
+    # (mv, skip, split, mv16, skip16) grids; lv/rec planes
+    ph, pw = src[0].shape
+    assert block_agreement(want, got, (0, 1, 11, 12, 13), (2, 5),
+                           (3, 4, 6, 7), ph // 32, pw // 32) >= 0.99
+    for i in (8, 9, 10, 14, 15):   # strip, cdefs, lr, refsel, lr taps
+        np.testing.assert_array_equal(got[i], np.asarray(want[i]))
+    assert (got[0] != 0).any(), "no motion found: test content too flat"
+
+
+def test_port_imports_no_jax():
+    """A tiny CPU encode through av1tpu_torch loads no jax module."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from av1tpu.config import TpuEncoderConfig\n"
+        "from av1tpu.utils.testsrc import testsrc2\n"
+        "from av1tpu_torch.spec_engine import SpecTorchEngine\n"
+        "cfg = TpuEncoderConfig(chunk=1, golden=False, cdef=False, "
+        "lr=False)\n"
+        "eng = SpecTorchEngine(cfg, device='cpu')\n"
+        "fr = [testsrc2(64, 64, i) for i in range(2)]\n"
+        "fr = [type(f)(y=np.clip(f.y.astype(int) + "
+        "np.random.default_rng(i).integers(-6, 7, f.y.shape), 0, 255)"
+        ".astype(np.uint8), u=f.u, v=f.v) for i, f in enumerate(fr)]\n"
+        "out = list(eng.encode_stream(fr, 96))\n"
+        "assert len(out) == 2 and out[0][1] and not out[1][1]\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_engine_rejects_unported_config():
+    from av1tpu.config import TpuEncoderConfig
+    from av1tpu_torch.spec_engine import SpecTorchEngine
+    with pytest.raises(NotImplementedError, match="golden"):
+        SpecTorchEngine(TpuEncoderConfig(chunk=1, cdef=False, lr=False),
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="chunk"):
+        SpecTorchEngine(TpuEncoderConfig(golden=False, cdef=False,
+                                         lr=False), device="cpu")
+
+
+def test_engine_refuses_deblocking_gop():
+    """A clean source turns the GOP's deblocking on, and the port
+    raises instead of encoding without the loop filter."""
+    from av1tpu.config import TpuEncoderConfig
+    from av1tpu_torch.spec_engine import SpecTorchEngine
+    eng = SpecTorchEngine(TpuEncoderConfig(chunk=1, golden=False,
+                                           cdef=False, lr=False),
+                          device="cpu")
+    flat = testsrc.testsrc2(64, 64, 0)
+    flat.y[:] = 128
+    with pytest.raises(NotImplementedError, match="loopfilter"):
+        eng.encode_smoke_frame(flat)
