@@ -4,8 +4,9 @@ Devices are explicit: callers name ``"cuda"`` or ``"cpu"``; asking for
 CUDA where there is none raises.  Nothing here falls back from one to
 the other.
 
-The hand-written kernels (``csrc/*.cu``) compile with ``nvcc`` into one
-plain-C shared library loaded through ``ctypes``.  The build happens at
+The hand-written kernels (``csrc/*.cu``) compile with ``nvcc``, one
+process per source in parallel, into one plain-C shared library loaded
+through ``ctypes``.  The build happens at
 first use, from the package's own sources, into ``_build/`` next to this
 file, keyed on a content hash of the sources and flags (checkouts do not
 preserve mtimes), so a fresh checkout builds everything on its first
@@ -27,7 +28,7 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -79,17 +80,34 @@ def _nvcc() -> str:
 
 def build_kernels() -> str:
     """Compile the kernel library if its content hash is not built yet;
-    returns the library path."""
+    returns the library path.  Each source compiles in its own ``nvcc``,
+    all started together, then one link; ``ptxas``'s register and
+    shared-memory report lands beside the library (``.log``)."""
     path = os.path.join(BUILD_DIR, f"libav1tpu_kernels_{_src_hash()}.so")
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[p for p in _sources() if p.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    srcs = [p for p in _sources() if p.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(p)}.o" for p in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, p],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for p, o in zip(srcs, objs)]
+    logs = [pr.communicate()[0] for pr in procs]
+    failed = [f"{p}:\n{log}" for p, pr, log in zip(srcs, procs, logs)
+              if pr.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
+        raise RuntimeError("nvcc link failed:\n" + res.stdout + res.stderr)
+    for o in objs:
+        os.remove(o)
+    with open(path + ".log", "w") as f:
+        f.write("\n".join(logs))
     os.replace(tmp, path)
     return path
 

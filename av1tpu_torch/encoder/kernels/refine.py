@@ -7,9 +7,11 @@ per quadrant.
 
 Kernel: ``csrc/refine.cu``, replacing the Pallas kernel
 ``av1tpu/encoder/kernels/pallas_motion.py::_refine_kernel``.  Bound by
-integer ALU; one CTA per block with the region in shared memory and
-int32 sums.  The reference sums in float32, which is exact only below
-2^24; the port's sums are exact at 8 and 10 bits, so the two agree
+device memory at the main-path shapes; the kernel splits the SSD into
+window sums of r^2, the cross term and sum(b^2), and runs the cross
+term register-blocked on 8-bit (dp4a) or 16-bit staged copies (see the
+source's note).  The reference sums in float32, which is exact only
+below 2^24; the port's sums are exact at 8 and 10 bits, so the two agree
 whenever the reference's sums are exact.  The wrappers take a
 block-first layout, blocks (B, n, n) and regions (B, R, R): the
 reference's block-index-last transposes and 128-lane batch padding are

@@ -6,8 +6,8 @@ module scope): the GOP/keyframe decisions (``_scene_cut``,
 padding (``_pad_planes`` with ``legacy.core.intra_frame.pad_plane``)
 and ``encode_stream`` on its single-frame dispatch path
 (``chunk == 1``).  Behaviour is unchanged for ``golden=False``, the only
-configuration the port accepts; a later change lifts these into a
-JAX-free module shared by both engines.
+configuration the port accepts.  The port keeps this copy: it imports
+nothing of ``av1tpu``.
 """
 
 from __future__ import annotations
@@ -18,9 +18,9 @@ from typing import Optional
 
 import numpy as np
 
-from av1tpu.config import TpuEncoderConfig
-from av1tpu.encoder import ratectrl
-from av1tpu.utils.testsrc import Frame
+from av1tpu_torch.config import TpuEncoderConfig
+from av1tpu_torch.encoder import ratectrl
+from av1tpu_torch.utils.testsrc import Frame
 
 
 def pad_plane(plane: np.ndarray, block: int) -> np.ndarray:

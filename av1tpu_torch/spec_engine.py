@@ -3,7 +3,7 @@
 The port of ``av1tpu/spec_engine.py``'s single-device, single-frame
 pipeline: keyframes from ``specav1.torch_intra``, P-frames from
 ``specav1.torch_inter``, sparse level packing on the device, and the
-shared native C++ tile writer plus header/OBU writer on the host.  The
+port's own native C++ tile writer plus header/OBU writer on the host.  The
 output is standard AV1 in the same low-overhead framing as the JAX
 engine (keyframes carry [sequence header OBU][frame OBU]).
 
@@ -21,14 +21,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from av1tpu.config import TpuEncoderConfig
-from av1tpu.specav1 import lr as _NL
-from av1tpu.specav1 import native
-from av1tpu.specav1 import obu as obu_mod
-from av1tpu.specav1 import writer as W
 from av1tpu_torch import device as D
+from av1tpu_torch.config import TpuEncoderConfig
 from av1tpu_torch.engine import TorchEngine
+from av1tpu_torch.specav1 import lr as _NL
+from av1tpu_torch.specav1 import native
+from av1tpu_torch.specav1 import obu as obu_mod
 from av1tpu_torch.specav1 import torch_inter, torch_intra
+from av1tpu_torch.specav1 import writer as W
 
 I32 = torch.int32
 
@@ -305,7 +305,7 @@ class SpecTorchEngine(TorchEngine):
                 "key", qindex, mi_cols, mi_rows, spans,
                 (g_mode[:gh_t, :gw_t], g_uv[:gh_t, :gw_t],
                  g_skip[:gh_t, :gw_t]), lv_y, lv_u, lv_v,
-                strip_skip=strip_skip, lr=None,
+                strip_skip=strip_skip,
                 angles=g_angle[:gh_t, :gw_t],
                 key_split5=(g_split[:gh_t, :gw_t], g_m16[:gh_t, :gw_t],
                             g_uv16[:gh_t, :gw_t], g_a16[:gh_t, :gw_t],
@@ -339,7 +339,7 @@ class SpecTorchEngine(TorchEngine):
             "inter", qindex, mi_cols, mi_rows, spans,
             (modes, mv8.reshape(gh, gw, 2)[:gh_t, :gw_t],
              skip.reshape(gh, gw)[:gh_t, :gw_t]),
-            ylv, ulv, vlv, strip_skip=strip_skip, lr=None,
+            ylv, ulv, vlv, strip_skip=strip_skip,
             split3=(splits[:gh_t, :gw_t], mvs16[:gh_t, :gw_t],
                     skips16[:gh_t, :gw_t]))
         hdr = W.write_inter_frame_header(

@@ -1,0 +1,136 @@
+# Copied from av1tpu/specav1/decoder.py (without the deblocking and CDEF
+# branches, which reach JAX modules).
+"""Top-level spec-AV1 decoder: temporal units -> frames.
+
+Decodes what the port encodes: KEY and INTER frames with the in-loop
+filters off, and loop restoration.  A frame header that turns on
+deblocking or CDEF raises ``NotImplementedError`` naming the module
+still to port.
+"""
+
+from __future__ import annotations
+
+from av1tpu_torch.specav1 import headers, obu
+from av1tpu_torch.specav1 import lr as lr_mod
+from av1tpu_torch.specav1.bits import BitReader
+from av1tpu_torch.specav1.cdfs import FrameContext
+from av1tpu_torch.specav1.tile import TileDecoder
+
+
+class Decoder:
+    def __init__(self):
+        self.seq: headers.SequenceHeader | None = None
+        self.ref_frames: list = [None] * 8
+        self.ref_slot_meta: list = [None] * 8  # (planes, width, height)
+
+    def decode_tu(self, tu: bytes) -> list:
+        """Decode one temporal unit; returns list of (y, u, v) planes."""
+        out = []
+        for o in obu.parse_obus(tu):
+            if o.type == obu.OBU_SEQUENCE_HEADER:
+                self.seq = headers.parse_sequence_header(o.payload)
+            elif o.type == obu.OBU_FRAME:
+                out.extend(self._decode_frame_obu(o.payload))
+            elif o.type == obu.OBU_FRAME_HEADER:
+                raise NotImplementedError("separate frame header OBUs")
+            elif o.type in (obu.OBU_TEMPORAL_DELIMITER, obu.OBU_PADDING,
+                            obu.OBU_METADATA):
+                continue
+        return out
+
+    def _decode_frame_obu(self, payload: bytes) -> list:
+        assert self.seq is not None, "no sequence header seen"
+        seq = self.seq
+        hdr = headers.parse_frame_header(payload, seq)
+        if any(hdr.lf.level):
+            raise NotImplementedError(
+                "deblocking loop filter (specav1/loopfilter.py) is not "
+                "ported to av1tpu_torch yet")
+        c = hdr.cdef
+        if any(c.y_pri) or any(c.y_sec) or any(c.uv_pri) or any(c.uv_sec):
+            raise NotImplementedError(
+                "CDEF (specav1/cdef.py) is not ported to av1tpu_torch yet")
+        if hdr.show_existing_frame:
+            planes, w, h = self.ref_slot_meta[hdr.frame_to_show_map_idx]
+            return [self._crop_dims(planes, w, h)]
+        # byte-align then tile group
+        pos = (hdr.header_bits + 7) & ~7
+        b = BitReader(payload, pos)
+        num_tiles = hdr.tile_cols * hdr.tile_rows
+        tg_start, tg_end = 0, num_tiles - 1
+        if num_tiles > 1:
+            if b.f(1):  # tile_start_and_end_present_flag
+                bits = hdr.tile_cols_log2 + hdr.tile_rows_log2
+                tg_start = b.f(bits)
+                tg_end = b.f(bits)
+        b.byte_align()
+        fc = FrameContext(hdr.base_q_idx)
+        td = TileDecoder(seq, hdr, fc,
+                         ref_planes=None if hdr.frame_is_intra()
+                         else self.ref_frames)
+        data = payload[b.pos // 8:]
+        off = 0
+        for tn in range(tg_start, tg_end + 1):
+            tr, tc = tn // hdr.tile_cols, tn % hdr.tile_cols
+            if tn == tg_end:
+                tile_data = data[off:]
+            else:
+                sz = int.from_bytes(
+                    data[off:off + hdr.tile_size_bytes], "little") + 1
+                off += hdr.tile_size_bytes
+                tile_data = data[off:off + sz]
+                off += sz
+            if tn > tg_start:
+                # spec 5.11.2 init_symbol: every tile starts from the
+                # frame-initial CDF state; carrying tile 1's adapted
+                # CDFs into tile 2 desyncs msac (caught by the fast
+                # full-HD multi-tile conformance test)
+                td.fc = FrameContext(hdr.base_q_idx)
+            td.decode_tile(tile_data,
+                           hdr.mi_row_starts[tr], hdr.mi_row_starts[tr + 1],
+                           hdr.mi_col_starts[tc], hdr.mi_col_starts[tc + 1])
+        full = self._finish_frame(td, hdr)
+        # reference slots hold the frame cropped to its coded dims: the
+        # spec clamps inter reads against FrameWidth/Height, not the
+        # decoder's internal SB padding
+        cropped = self._crop_dims(full, hdr.frame_width, hdr.frame_height)
+        for i in range(8):
+            if hdr.refresh_frame_flags & (1 << i):
+                self.ref_frames[i] = cropped
+                self.ref_slot_meta[i] = (cropped, hdr.frame_width,
+                                         hdr.frame_height)
+        if not hdr.show_frame:
+            return []
+        return [self._crop_dims(full, hdr.frame_width, hdr.frame_height)]
+
+    def _finish_frame(self, td: TileDecoder, hdr) -> tuple:
+        """Returns the FULL coded-size planes (reference slots keep the
+        SB-padded area: inter prediction clamps against coded dims).
+        Deblocking and CDEF are refused at the frame header, so LR is
+        the only in-loop filter here."""
+        planes = (td.planes[0], td.planes[1], td.planes[2])
+        if hdr.lr.uses_lr:
+            # spec 7.17; td.lr_state carries the per-RU syntax read in
+            # the tiles.  With deblocking and CDEF off, the LR stripe
+            # boundaries read the unfiltered planes.
+            fy, fu, fv = lr_mod.apply_lr_frame(
+                td.lr_state, planes, planes, self.seq.bit_depth,
+                hdr.frame_height, hdr.frame_width)
+            dt = planes[0].dtype
+            planes = (fy.astype(dt), fu.astype(dt), fv.astype(dt))
+        return planes
+
+    def _crop_dims(self, planes, w, h) -> tuple:
+        y, u, v = planes
+        ssx, ssy = self.seq.subsampling_x, self.seq.subsampling_y
+        cw = (w + ssx) >> ssx
+        ch = (h + ssy) >> ssy
+        return (y[:h, :w].copy(), u[:ch, :cw].copy(), v[:ch, :cw].copy())
+
+
+def decode_stream(tus) -> list:
+    d = Decoder()
+    frames = []
+    for tu in tus:
+        frames.extend(d.decode_tu(bytes(tu)))
+    return frames

@@ -20,9 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from av1tpu.specav1 import inter_recon
-from av1tpu.specav1 import lr as _NL
 from av1tpu_torch.encoder.kernels import gather, motion, refine
+from av1tpu_torch.specav1 import inter_recon
+from av1tpu_torch.specav1 import lr as _NL
 from av1tpu_torch.specav1.transforms import Quantizer, fwd_mat, inv_tx2d_add
 
 PAD = motion.PAD   # luma edge padding (chroma uses PAD // 2)

@@ -21,9 +21,9 @@ import functools
 import numpy as np
 import torch
 
-from av1tpu.specav1 import recon
 from av1tpu_torch.encoder.kernels.motion import first_argmin
-from av1tpu_torch.specav1 import torch_inter
+from av1tpu_torch.specav1 import recon, torch_inter
+from av1tpu_torch.specav1.tile import MODE_TO_TXFM
 from av1tpu_torch.specav1.transforms import (Quantizer, fwd_mat,
                                              inv_tx2d_add,
                                              inv_tx2d_add_mixed)
@@ -71,7 +71,6 @@ _Y16_COMBOS = (("dct", "dct"), ("dct", "adst"),
 def _mode_combo(mode: int) -> int:
     """Index into _Y16_COMBOS of a mode's derived 16x16 transform.
     Copied from jax_intra._mode_combo."""
-    from av1tpu.specav1.tile import MODE_TO_TXFM
     return _Y16_COMBOS.index(recon.TX_1D[MODE_TO_TXFM[mode]])
 
 

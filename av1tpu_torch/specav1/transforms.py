@@ -15,7 +15,7 @@ import math
 import numpy as np
 import torch
 
-from av1tpu.specav1 import recon
+from av1tpu_torch.specav1 import recon
 
 
 def _fwd_mat(n: int) -> np.ndarray:

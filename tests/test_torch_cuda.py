@@ -75,13 +75,74 @@ def test_refine_kernel_matches_plain(cuda, n):
     assert (d1[:20] == -8).all()     # ties resolve to the first k
 
 
+def _k2_equal(bt, rt, n):
+    s1, d1 = refine.refine_ssd(bt, rt, n, 8)
+    s0, d0 = refine.refine_ssd_plain(bt, rt, n, 8)
+    assert torch.equal(s1, s0) and torch.equal(d1, d0)
+    return s1, d1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 32])
+def test_refine_kernel_largest_10bit_ssd(cuda, n):
+    """An all-1023 block against an all-0 region: every SSD is
+    n^2 * 1023^2 (1,071,645,696 at n=32, next to the int32 wrap), all
+    tie, and k = 0 wins."""
+    bt = torch.full((5, n, n), 1023, dtype=torch.int32, device=cuda)
+    rt = torch.zeros((5, n + 16, n + 16), dtype=torch.int32, device=cuda)
+    s, d = _k2_equal(bt, rt, n)
+    assert (s == float(n * n * 1023 ** 2)).all() and (d == -8).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 32])
+def test_refine_kernel_constant_region_ties_to_first(cuda, n):
+    rt = torch.full((7, n + 16, n + 16), 300, dtype=torch.int32, device=cuda)
+    bt = torch.full((7, n, n), 41, dtype=torch.int32, device=cuda)
+    _, d = _k2_equal(bt, rt, n)
+    assert (d == -8).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("n", [16, 32])
+def test_refine_kernel_random_ragged_batch(cuda, n, bd):
+    """Random 8/10-bit blocks cut from their regions plus noise, at a
+    block count (151) that the n=16 CTA's four blocks do not divide."""
+    rng = np.random.default_rng(n * bd)
+    B, R = 151, n + 16
+    reg = rng.integers(0, 1 << bd, (B, R, R))
+    oy, ox = rng.integers(0, 17, (2, B))
+    blk = np.stack([reg[b, oy[b]:oy[b] + n, ox[b]:ox[b] + n]
+                    for b in range(B)])
+    blk = np.clip(blk + rng.integers(-3, 4, blk.shape), 0, (1 << bd) - 1)
+    _k2_equal(torch.as_tensor(blk, dtype=torch.int32, device=cuda),
+              torch.as_tensor(reg, dtype=torch.int32, device=cuda), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,radius", [(16, 8), (32, 8), (8, 4)])
+def test_refine_kernel_direct_path(cuda, n, radius):
+    """Values outside [0, 1023] and shapes off the main path take the
+    kernel's direct path, which wraps like the plain version's int32."""
+    rng = np.random.default_rng(n + radius)
+    R = n + 2 * radius
+    bt = torch.as_tensor(rng.integers(-40000, 40000, (6, n, n)),
+                         dtype=torch.int32, device=cuda)
+    rt = torch.as_tensor(rng.integers(-40000, 40000, (6, R, R)),
+                         dtype=torch.int32, device=cuda)
+    s1, d1 = refine.refine_ssd(bt, rt, n, radius)
+    s0, d0 = refine.refine_ssd_plain(bt, rt, n, radius)
+    assert torch.equal(s1, s0) and torch.equal(d1, d0)
+
+
 @pytest.mark.cuda
 def test_gpu_stream_equals_cpu_stream(cuda):
     """A tiny grainy clip encodes to the same bytes on the card (CUDA
     kernels) and on the CPU (plain versions)."""
-    from av1tpu.config import TpuEncoderConfig
-    from av1tpu.utils import testsrc
+    from av1tpu_torch.config import TpuEncoderConfig
     from av1tpu_torch.spec_engine import SpecTorchEngine
+    from av1tpu_torch.utils import testsrc
     rng = np.random.default_rng(0)
     frames = []
     for i in range(3):

@@ -9,6 +9,7 @@ every decision and level, and that agreeing blocks reconstruct
 identically.  At these sizes 99% means every block.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -90,8 +91,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import numpy as np\n"
-        "from av1tpu.config import TpuEncoderConfig\n"
-        "from av1tpu.utils.testsrc import testsrc2\n"
+        "from av1tpu_torch.config import TpuEncoderConfig\n"
+        "from av1tpu_torch.utils.testsrc import testsrc2\n"
         "from av1tpu_torch.spec_engine import SpecTorchEngine\n"
         "cfg = TpuEncoderConfig(chunk=1, golden=False, cdef=False, "
         "lr=False)\n"
@@ -111,8 +112,68 @@ def test_port_imports_no_jax():
     assert res.stdout.strip().endswith("OK")
 
 
+def test_port_encode_decode_loads_no_av1tpu():
+    """A 64x64 key + P encode on the CPU, decoded by the port's own spec
+    decoder, loads neither jax nor any module of av1tpu."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from av1tpu_torch.config import TpuEncoderConfig\n"
+        "from av1tpu_torch.spec_engine import SpecTorchEngine\n"
+        "from av1tpu_torch.specav1 import decoder\n"
+        "from av1tpu_torch.utils import testsrc\n"
+        "eng = SpecTorchEngine(TpuEncoderConfig(chunk=1, golden=False, "
+        "cdef=False, lr=False), device='cpu')\n"
+        "rng = np.random.default_rng(0)\n"
+        "fr = [testsrc.testsrc2(64, 64, i) for i in range(2)]\n"
+        "fr = [testsrc.Frame(y=np.clip(f.y.astype(int) + "
+        "rng.integers(-6, 7, f.y.shape), 0, 255).astype(np.uint8), "
+        "u=f.u, v=f.v) for f in fr]\n"
+        "out = list(eng.encode_stream(fr, 96))\n"
+        "dec = decoder.decode_stream([p for p, _ in out])\n"
+        "assert [k for _, k in out] == [True, False] and len(dec) == 2\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'av1tpu') or "
+        "m.startswith(('jax.', 'av1tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def _port_sources():
+    root = os.path.join(REPO, "av1tpu_torch")
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tests", "test_torch_cuda.py")]
+    for d, _, names in os.walk(root):
+        out += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(out)
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_source_imports_no_av1tpu(path):
+    """No file of the port, nor chip_smoke.py, nor the card-only tests,
+    imports jax or av1tpu (statically, at any depth)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for nm in names:
+            top = nm.split(".")[0]
+            assert top not in ("av1tpu", "jax"), \
+                f"{os.path.relpath(path, REPO)}:{node.lineno} imports {nm}"
+
+
 def test_engine_rejects_unported_config():
-    from av1tpu.config import TpuEncoderConfig
+    from av1tpu_torch.config import TpuEncoderConfig
     from av1tpu_torch.spec_engine import SpecTorchEngine
     with pytest.raises(NotImplementedError, match="golden"):
         SpecTorchEngine(TpuEncoderConfig(chunk=1, cdef=False, lr=False),
@@ -125,7 +186,7 @@ def test_engine_rejects_unported_config():
 def test_engine_refuses_deblocking_gop():
     """A clean source turns the GOP's deblocking on, and the port
     raises instead of encoding without the loop filter."""
-    from av1tpu.config import TpuEncoderConfig
+    from av1tpu_torch.config import TpuEncoderConfig
     from av1tpu_torch.spec_engine import SpecTorchEngine
     eng = SpecTorchEngine(TpuEncoderConfig(chunk=1, golden=False,
                                            cdef=False, lr=False),

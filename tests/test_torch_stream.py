@@ -16,6 +16,7 @@ import torch
 from av1tpu.config import TpuEncoderConfig
 from av1tpu.specav1 import decoder, jax_intra
 from av1tpu.utils import testsrc
+from av1tpu_torch import config as port_config
 from av1tpu_torch.spec_engine import SpecTorchEngine
 from av1tpu_torch.specav1 import torch_intra
 
@@ -85,7 +86,7 @@ def test_engine_stream_matches_jax_engine():
     frames = [grainy_frame(i, rng) for i in range(3)]
     jout = list(SpecTpuEngine(TpuEncoderConfig(**CFG)).encode_stream(
         frames, 96))
-    port = _Recording(TpuEncoderConfig(**CFG), device="cpu")
+    port = _Recording(port_config.TpuEncoderConfig(**CFG), device="cpu")
     tout = list(port.encode_stream(frames, 96))
     assert [k for _, k in tout] == [k for _, k in jout] == \
         [True, False, False]
