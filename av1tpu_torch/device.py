@@ -122,6 +122,9 @@ def kernels() -> ctypes.CDLL:
             lib.av1_gather_windows.argtypes = [vp, ci, ci, ci, vp, vp, ci,
                                                ci, vp, vp]
             lib.av1_gather_windows.restype = ci
+            lib.av1_gather_windows2.argtypes = [vp, vp, ci, ci, ci, vp, vp,
+                                                vp, ci, ci, vp, vp]
+            lib.av1_gather_windows2.restype = ci
             lib.av1_refine_ssd.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp]
             lib.av1_refine_ssd.restype = ci
             _lib = lib

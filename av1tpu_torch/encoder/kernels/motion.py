@@ -1,5 +1,5 @@
-"""Full-pel motion search: the ``search_v3`` subset of
-``av1tpu/encoder/kernels/motion.py``.
+"""Full-pel motion search: the ``search_v3`` and ``gather_blocks``
+subset of ``av1tpu/encoder/kernels/motion.py``.
 
 Stage 1: a +-8 shift scan on 8x-downsampled planes (+-64 full-pel) sets
 per-block seeds.  Stage 2: K2 refines +-8 around the zero seed and
@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from av1tpu_torch.encoder.kernels import refine
+from av1tpu_torch.encoder.kernels import gather, refine
 
 PAD = 64          # normative luma reference padding (pixels)
 MAX_MV = PAD - 16  # keep gathers inside the padded extent
@@ -33,6 +33,17 @@ def block_positions(hp: int, wp: int, n: int) -> np.ndarray:
     r, c = np.mgrid[0:rows, 0:cols]
     return np.stack([r.reshape(-1) * n, c.reshape(-1) * n], axis=1).astype(
         np.int32)
+
+
+def gather_blocks(ref_pad: torch.Tensor, pos: torch.Tensor,
+                  mvs: torch.Tensor, n: int, pad: int = PAD) -> torch.Tensor:
+    """(B, n, n) int32 blocks at pos + mv (full-pel) of the reference
+    padded by ``pad``; positions clamp into the padded extent.  Port of
+    motion.gather_blocks."""
+    hp2, wp2 = ref_pad.shape
+    r = (pos[:, 0] + pad + mvs[:, 0]).clamp(0, hp2 - n)
+    c = (pos[:, 1] + pad + mvs[:, 1]).clamp(0, wp2 - n)
+    return gather.gather_windows(ref_pad, r, c, n)
 
 
 def _to_blocks(plane: torch.Tensor, n: int) -> torch.Tensor:

@@ -110,3 +110,22 @@ def refine_around_seeds(src_blocks: torch.Tensor, ref_pad: torch.Tensor,
     base = torch.stack([r0 - (pos[:, 0] + pad), c0 - (pos[:, 1] + pad)],
                        dim=1) + radius
     return (base + disp).to(torch.int32), ssd
+
+
+def refine_around_seeds2(src_blocks: torch.Tensor, ref_pad: torch.Tensor,
+                         gld_pad: torch.Tensor, ri: torch.Tensor,
+                         pos: torch.Tensor, seeds: torch.Tensor, n: int,
+                         radius: int, pad: int):
+    """refine_around_seeds with a per-block reference plane: block b's
+    region comes from ``gld_pad`` where ``ri[b]`` is 1, else from
+    ``ref_pad``.  Port of pallas_motion.refine_around_seeds2; the pair of
+    planes takes the place of its make_wide2 handle."""
+    R = n + 2 * radius
+    hp2, wp2 = ref_pad.shape
+    r0 = (pos[:, 0] + pad + seeds[:, 0] - radius).clamp(0, hp2 - R)
+    c0 = (pos[:, 1] + pad + seeds[:, 1] - radius).clamp(0, wp2 - R)
+    regions = gather.gather_windows2(ref_pad, gld_pad, ri, r0, c0, R)
+    ssd, disp = refine_ssd(src_blocks.to(torch.int32), regions, n, radius)
+    base = torch.stack([r0 - (pos[:, 0] + pad), c0 - (pos[:, 1] + pad)],
+                       dim=1) + radius
+    return (base + disp).to(torch.int32), ssd

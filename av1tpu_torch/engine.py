@@ -5,9 +5,8 @@ module scope): the GOP/keyframe decisions (``_scene_cut``,
 ``_decide_key``, ``_classify_frame``, ``_gop_predictable``), plane
 padding (``_pad_planes`` with ``legacy.core.intra_frame.pad_plane``)
 and ``encode_stream`` on its single-frame dispatch path
-(``chunk == 1``).  Behaviour is unchanged for ``golden=False``, the only
-configuration the port accepts.  The port keeps this copy: it imports
-nothing of ``av1tpu``.
+(``chunk == 1``), the golden-aware scene cut included.  The port keeps
+this copy: it imports nothing of ``av1tpu``.
 """
 
 from __future__ import annotations
@@ -43,12 +42,19 @@ class TorchEngine:
         self._frame_idx = 0
         self._prev_thumb = None
         self._deep_gop = False
+        # two-reference engines: the GOP keyframe's recon (GOLDEN) and
+        # its thumb, for cuts back to the scene the GOP opened on
+        self._golden = False
+        self._golden_dev = None
+        self._golden_thumb = None
 
     def start_stream(self) -> None:
         """Reset GOP state (call once per input video)."""
         self._ref_dev = None
+        self._golden_dev = None
         self._frame_idx = 0
         self._prev_thumb = None
+        self._golden_thumb = None
 
     def _scene_cut(self, frame: Frame) -> bool:
         """Mean abs diff of 16x-decimated luma vs the previous frame."""
@@ -121,7 +127,10 @@ class TorchEngine:
 
     def _classify_frame(self, frame: Frame, next_frame) -> str:
         """Lookahead-1 classification: 'key' | 'inter' | 'flash' (a
-        one-frame scene codes as a non-reference inter frame)."""
+        one-frame scene codes as a non-reference inter frame).  With two
+        references, a cut whose content matches the GOP keyframe (a cut
+        back to the scene the GOP opened on) codes as a regular inter
+        frame: its blocks predict from GOLDEN at P-frame cost."""
         keyint = max(1, self.cfg.keyint)
         thumb = frame.y[::16, ::16].astype(np.int32)
         prev = self._prev_thumb
@@ -139,7 +148,15 @@ class TorchEngine:
                     and np.abs(nt - prev).mean() <= thr):
                 return "flash"
         self._prev_thumb = thumb
-        return "key" if forced or cut else "inter"
+        if cut and not forced:
+            gt = self._golden_thumb
+            if (self._golden and gt is not None and gt.shape == thumb.shape
+                    and np.abs(thumb - gt).mean() <= thr):
+                return "inter"
+        if forced or cut:
+            self._golden_thumb = thumb
+            return "key"
+        return "inter"
 
     @staticmethod
     def _pad_planes(frame: Frame, block: int):

@@ -7,11 +7,14 @@ port's own native C++ tile writer plus header/OBU writer on the host.  The
 output is standard AV1 in the same low-overhead framing as the JAX
 engine (keyframes carry [sequence header OBU][frame OBU]).
 
-Supported configuration: ``chunk=1``, ``golden=False``, ``cdef=False``,
-``lr=False``, one device, 8- or 10-bit.  Deblocking is decided per GOP
-exactly as the JAX engine does (on for clean sources); the port raises
-``NotImplementedError`` when that decision turns it on, since the
-loop filter is not ported yet.
+Supported configuration: ``chunk=1``, ``cdef=False``, ``lr=False``, one
+device, 8- or 10-bit, ``golden`` on or off.  With ``golden`` the GOP
+keyframe's filtered reconstruction stays in reference slot 1 and every
+P-frame block picks LAST or GOLDEN.  Deblocking is decided per GOP
+exactly as the JAX engine does: on for a clean source (noise floor <= 1)
+whose coded height is a multiple of 32, or 16 past one with a width that
+is a multiple of 16 (every 720p and 2160p file; never 1080p, where
+1080 % 32 == 24), at a level derived from each frame's qindex.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from av1tpu_torch.engine import TorchEngine
 from av1tpu_torch.specav1 import lr as _NL
 from av1tpu_torch.specav1 import native
 from av1tpu_torch.specav1 import obu as obu_mod
-from av1tpu_torch.specav1 import torch_inter, torch_intra
+from av1tpu_torch.specav1 import recon, torch_inter, torch_intra
 from av1tpu_torch.specav1 import writer as W
 
 I32 = torch.int32
@@ -89,6 +92,21 @@ def noise_floor(y) -> float:
     s = np.asarray(y[::8], np.int32)
     d2 = s[:, 2:] - 2 * s[:, 1:-1] + s[:, :-2]
     return float(np.median(np.abs(d2)))
+
+
+def lf_levels(qindex: int, bit_depth: int = 8) -> tuple:
+    """Deblocking filter level (luma, chroma) from qindex (libaom's
+    q-based guess: av1_pick_filter_level's filt_guess regression, per
+    bit depth; 8 or 10 bits)."""
+    q = int(recon.AC_Q[bit_depth][int(qindex)])
+    if bit_depth == 8:
+        lvl = (q * 20723 + 1015158) >> 18
+    elif bit_depth == 10:
+        lvl = (q * 20723 + 4060632) >> 20
+    else:
+        raise ValueError(f"lf_levels: bit depth {bit_depth}")
+    lvl = max(0, min(63, lvl))
+    return lvl, lvl
 
 
 def _lr_nru(th: int, tw: int) -> tuple:
@@ -158,7 +176,8 @@ def pack_outputs(lv_y, lv_u, lv_v, grids, cap: int):
 
 def state_from_numpy(ref_y, ref_u, ref_v, device) -> tuple:
     """Reference planes given as numpy arrays (for example another
-    encoder's reconstruction) as the port's int32 device tensors."""
+    encoder's reconstruction) as the port's int32 device tensors: one
+    call for the LAST planes, another for the GOLDEN ones."""
     dev = D.resolve_device(device)
     return tuple(torch.from_numpy(np.ascontiguousarray(p, np.int32)).to(dev)
                  for p in (ref_y, ref_u, ref_v))
@@ -182,8 +201,6 @@ class SpecTorchEngine(TorchEngine):
         missing = []
         if c.chunk > 1:
             missing.append("chunked dispatch (chunk > 1)")
-        if c.golden:
-            missing.append("golden reference (golden=True)")
         if c.cdef:
             missing.append("CDEF (cdef=True)")
         if c.lr:
@@ -198,6 +215,8 @@ class SpecTorchEngine(TorchEngine):
         self._order_hint = 0
         self._gop_deblock = False
         self._qround = float(c.qround)
+        # per-block LAST/GOLDEN selection: slot 1 holds the GOP keyframe
+        self._golden = bool(c.golden)
 
     @property
     def _ref(self):
@@ -239,40 +258,41 @@ class SpecTorchEngine(TorchEngine):
                                  and (th % 32 == 0
                                       or (th % 32 == 16
                                           and tw % 16 == 0)))
-        if self._gop_deblock:
-            raise NotImplementedError(
-                "this GOP needs the deblocking loop filter "
-                "(specav1/loopfilter.py), which is not ported to "
-                "av1tpu_torch yet")
+        lfy, lfuv = lf_levels(qindex, bd) if self._gop_deblock else (0, 0)
         if is_key:
             _, _, brs = _tile_plan(th)
             out = torch_intra.encode_frame(
                 yj, uj, vj, qindex, nbr=ph // 32, nbc=pw // 32,
                 bit_depth=bd, th=th, tw=tw, tile_row_starts=brs,
-                qround=self._qround)
+                qround=self._qround, lf_y=lfy, lf_uv=lfuv,
+                deblock=self._gop_deblock)
+            # the filtered recon is both LAST and the GOP's GOLDEN
             self._ref_dev = out[0:3]
+            self._golden_dev = out[0:3]
             grids = torch.cat([out[i].reshape(-1) for i in range(6, 19)])
             pk = pack_outputs(out[3], out[4], out[5], grids, cap)
             return ("key", qindex, w, h, th, tw, ph, pw, bd, oh, refresh,
-                    out, pk, cap)
+                    out, pk, cap, lfy, lfuv, self._golden)
         refs = self._ref_dev
-        out = torch_inter.encode_frame(yj, uj, vj, refs[0], refs[1],
-                                       refs[2], qindex, bd, th=th, tw=tw,
-                                       qround=self._qround)
+        out = torch_inter.encode_frame(
+            yj, uj, vj, refs[0], refs[1], refs[2], qindex, bd, th=th, tw=tw,
+            qround=self._qround,
+            gld=self._golden_dev if self._golden else None, lf_y=lfy,
+            lf_uv=lfuv, deblock=self._gop_deblock)
         if refresh:
             self._ref_dev = out[5:8]
         grids = torch.cat([out[i].reshape(-1)
                            for i in (0, 1, 8, 9, 10, 11, 12, 13, 14, 15)])
         pk = pack_outputs(out[2], out[3], out[4], grids, cap)
         return ("inter", qindex, w, h, th, tw, ph, pw, bd, oh, refresh,
-                out, pk, cap)
+                out, pk, cap, lfy, lfuv, self._golden)
 
     @staticmethod
     def _finalize(pending) -> tuple[bytes, bool]:
         """Materialize a pending frame and entropy-code it (header and
         tile assembly copied from the JAX engine's _finalize)."""
         (kind, qindex, w, h, th, tw, ph, pw, bd, oh, refresh, out,
-         pk, cap) = pending
+         pk, cap, lfy, lfuv, golden_on) = pending
         rs = (w, h) if (tw, th) != (w, h) else None
         mi_cols, mi_rows = 2 * ((tw + 7) >> 3), 2 * ((th + 7) >> 3)
         gh_t, gw_t = (mi_rows + 7) // 8, (mi_cols + 7) // 8
@@ -313,7 +333,7 @@ class SpecTorchEngine(TorchEngine):
             hdr = W.write_key_frame_header(tw, th, qindex, order_hint=oh,
                                            render_size=rs,
                                            tile_rows_log2=trl2,
-                                           lf_level=0, lf_level_uv=0,
+                                           lf_level=lfy, lf_level_uv=lfuv,
                                            cdef=None)
             hdr.byte_align()
             seq = SpecSequenceHeader(w, h, bd).seq_obu()
@@ -334,6 +354,7 @@ class SpecTorchEngine(TorchEngine):
         mvs16 = grids[tail + B:tail + 9 * B].reshape(gh, gw, 4, 2)
         skips16 = grids[tail + 9 * B:tail + 13 * B].reshape(gh, gw, 4)
         refsel = grids[tail + 13 * B:tail + 14 * B].reshape(gh, gw)
+        # inter mode grid: 1 = inter/LAST, 4 = inter/GOLDEN (slot 1)
         modes = (1 + 3 * refsel[:gh_t, :gw_t]).astype(np.int32)
         tiles = native.encode_tile_rows(
             "inter", qindex, mi_cols, mi_rows, spans,
@@ -345,8 +366,9 @@ class SpecTorchEngine(TorchEngine):
         hdr = W.write_inter_frame_header(
             tw, th, qindex, order_hint=oh,
             refresh_frame_flags=0x01 if refresh else 0x00,
-            ref_slots=(0,) * 7, render_size=rs, tile_rows_log2=trl2,
-            lf_level=0, lf_level_uv=0, cdef=None)
+            ref_slots=(0, 0, 0, 1, 0, 0, 0) if golden_on else (0,) * 7,
+            render_size=rs, tile_rows_log2=trl2,
+            lf_level=lfy, lf_level_uv=lfuv, cdef=None)
         hdr.byte_align()
         payload = obu_mod.make_obu(
             obu_mod.OBU_FRAME, hdr.tobytes() + W.assemble_tile_group(tiles))

@@ -1,20 +1,23 @@
-# Copied from av1tpu/specav1/decoder.py (without the deblocking and CDEF
-# branches, which reach JAX modules).
+# Copied from av1tpu/specav1/decoder.py (without the CDEF branch and the
+# uniform-grid deblocking shortcut, which reach JAX modules).
 """Top-level spec-AV1 decoder: temporal units -> frames.
 
-Decodes what the port encodes: KEY and INTER frames with the in-loop
-filters off, and loop restoration.  A frame header that turns on
-deblocking or CDEF raises ``NotImplementedError`` naming the module
-still to port.
+Decodes what the port encodes: KEY and INTER frames, one or two
+references, the deblocking loop filter (numpy, from the decoded
+per-4x4 grids) and loop restoration.  A frame header that turns on CDEF
+raises ``NotImplementedError`` naming the module still to port.
 """
 
 from __future__ import annotations
 
-from av1tpu_torch.specav1 import headers, obu
+import numpy as np
+
+from av1tpu_torch.specav1 import headers, loopfilter, obu
 from av1tpu_torch.specav1 import lr as lr_mod
 from av1tpu_torch.specav1.bits import BitReader
 from av1tpu_torch.specav1.cdfs import FrameContext
-from av1tpu_torch.specav1.tile import TileDecoder
+from av1tpu_torch.specav1.tile import (BLOCK_SIZES, TX_SIZES_ALL,
+                                       TileDecoder, _chroma_tx_size)
 
 
 class Decoder:
@@ -42,10 +45,6 @@ class Decoder:
         assert self.seq is not None, "no sequence header seen"
         seq = self.seq
         hdr = headers.parse_frame_header(payload, seq)
-        if any(hdr.lf.level):
-            raise NotImplementedError(
-                "deblocking loop filter (specav1/loopfilter.py) is not "
-                "ported to av1tpu_torch yet")
         c = hdr.cdef
         if any(c.y_pri) or any(c.y_sec) or any(c.uv_pri) or any(c.uv_sec):
             raise NotImplementedError(
@@ -106,19 +105,53 @@ class Decoder:
     def _finish_frame(self, td: TileDecoder, hdr) -> tuple:
         """Returns the FULL coded-size planes (reference slots keep the
         SB-padded area: inter prediction clamps against coded dims).
-        Deblocking and CDEF are refused at the frame header, so LR is
-        the only in-loop filter here."""
+        In-loop filter order per spec: deblock -> (CDEF, refused at the
+        frame header) -> LR."""
         planes = (td.planes[0], td.planes[1], td.planes[2])
+        if any(hdr.lf.level):
+            planes = self._deblock(td, hdr, planes)
         if hdr.lr.uses_lr:
             # spec 7.17; td.lr_state carries the per-RU syntax read in
-            # the tiles.  With deblocking and CDEF off, the LR stripe
-            # boundaries read the unfiltered planes.
+            # the tiles.  With CDEF off, the LR stripe boundaries read
+            # the deblocked planes.
             fy, fu, fv = lr_mod.apply_lr_frame(
                 td.lr_state, planes, planes, self.seq.bit_depth,
                 hdr.frame_height, hdr.frame_width)
             dt = planes[0].dtype
             planes = (fy.astype(dt), fu.astype(dt), fv.astype(dt))
         return planes
+
+    def _deblock(self, td: TileDecoder, hdr, planes) -> tuple:
+        """Spec deblocking (7.14) from the decoded grids: every stream
+        the encoder emits (uniform 32x32, PARTITION_SPLIT 16s, strip
+        rows) and one-level var-tx streams whose blocks are all
+        >= 8x8 px."""
+        if hdr.lf.delta_enabled or hdr.delta_lf_present:
+            raise NotImplementedError(
+                "loop filter with per-ref/mode or per-block level deltas")
+        # block dims from mi_size (mvgrid only covers inter frames;
+        # mi_size is filled on every path)
+        bs_tab = np.asarray(BLOCK_SIZES, np.int32)
+        n4_w = bs_tab[td.mi_size][..., 0]
+        n4_h = bs_tab[td.mi_size][..., 1]
+        if n4_w.min() < 2 or n4_h.min() < 2:
+            raise NotImplementedError(
+                "loop filter with sub-8x8 blocks (chroma owner-edge "
+                "geometry not modeled)")
+        nbs = int(td.mi_size.max()) + 1
+        lut_w = np.ones((nbs,), np.int32)
+        lut_h = np.ones((nbs,), np.int32)
+        for bs in np.unique(td.mi_size):
+            tw_, th_ = TX_SIZES_ALL[_chroma_tx_size(int(bs), 1, 1)]
+            lut_w[bs], lut_h[bs] = tw_ >> 2, th_ >> 2
+        mr, mc = td.tx_w4.shape
+        ri = np.minimum(np.arange((mr + 1) // 2) * 2 + 1, mr - 1)
+        ci = np.minimum(np.arange((mc + 1) // 2) * 2 + 1, mc - 1)
+        owner = td.mi_size[np.ix_(ri, ci)]
+        return loopfilter.deblock_frame_general(
+            planes, tuple(hdr.lf.level), hdr.lf.sharpness, td.tx_w4,
+            td.tx_h4, n4_w, n4_h, td.skips, td.mvgrid.ref > 0, lut_w[owner],
+            lut_h[owner], self.seq.bit_depth)
 
     def _crop_dims(self, planes, w, h) -> tuple:
         y, u, v = planes

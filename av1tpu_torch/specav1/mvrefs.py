@@ -1,4 +1,5 @@
-# Copied from av1tpu/specav1/mvrefs.py.
+# Copied from av1tpu/specav1/mvrefs.py (one departure, marked where it is:
+# the frame-edge clamp of the MV candidates).
 """Spec-AV1 motion-vector prediction: the MV stack + mode contexts
 (spec §7.10.2 "find MV stack", following libaom's setup_ref_mv_list).
 
@@ -386,12 +387,15 @@ def find_mv_stack(grid: MvGrid, mi_row: int, mi_col: int, bw4: int,
             i += int(grid.n4_h[cr, mi_col - 1])
         refmv_count = len(mvs)
 
-    # clamp
+    # clamp against the frame's edges (spec 7.10.2.14: MiRows / MiCols;
+    # the original clamps against the tile's end, which differs below the
+    # first of several tile rows)
+    mi_rows, mi_cols = grid.ref.shape
     bw8, bh8 = bw4 * 4 * 8, bh4 * 4 * 8
     to_left = -(mi_col * 4) * 8
-    to_right = ((t_c1 - bw4 - mi_col) * 4) * 8
+    to_right = ((mi_cols - bw4 - mi_col) * 4) * 8
     to_top = -(mi_row * 4) * 8
-    to_bottom = ((t_r1 - bh4 - mi_row) * 4) * 8
+    to_bottom = ((mi_rows - bh4 - mi_row) * 4) * 8
     lo_c, hi_c = to_left - bw8 - MV_BORDER, to_right + bw8 + MV_BORDER
     lo_r, hi_r = to_top - bh8 - MV_BORDER, to_bottom + bh8 + MV_BORDER
     for i in range(refmv_count):

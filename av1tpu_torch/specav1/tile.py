@@ -1,4 +1,6 @@
-# Copied from av1tpu/specav1/tile.py.
+# Copied from av1tpu/specav1/tile.py (two departures, marked where they
+# are: blocks that overhang the frame edge; held to libaom by
+# tests/test_torch_host.py).
 """AV1 tile decoding: partition tree, mode info, residual coefficients,
 block reconstruction (spec §5.11, §7.11-7.13).
 
@@ -570,7 +572,11 @@ class TileDecoder:
         self.uv_modes[r:r + bh4, c:c + bw4] = uv_mode
         self.skips[r:r + bh4, c:c + bw4] = skip
         self.mi_size[r:r + bh4, c:c + bw4] = bsize
-        self.mvgrid.set_block(r, c, bh4, bw4, ref_frame, mv,
+        # the block's own dims, not the part inside the frame: the MV
+        # scans weigh a neighbour by its coded size (the original stores
+        # the clipped dims, and mispredicts beside a block that overhangs
+        # the frame edge); the grid's slices end at the frame
+        self.mvgrid.set_block(r, c, h4, w4, ref_frame, mv,
                               y_mode == NEWMV)
         self.filters[r:r + bh4, c:c + bw4] = interp if is_inter else 3
         tw, th = TX_SIZES_ALL[tx]
@@ -1261,6 +1267,16 @@ class TileDecoder:
             self.fc.intra_ext_tx[set_idx][sqr][intra_dir], len(txset))
         return txset[sym]
 
+    def _ctx_span(self, c4, r4, w4, h4):
+        """The part of a transform block's above / left context span that
+        lies inside the frame (spec 8.3.2: the context sums skip units at
+        or beyond MiCols / MiRows, which a block overhanging the frame
+        edge has).  Not in the original, which reads the whole span and
+        so loses the stream in such a block; the encoder is exact in
+        libaom there."""
+        return (min(w4, max(self.mi_cols - c4, 0)),
+                min(h4, max(self.mi_rows - r4, 0)))
+
     def _txb_skip_ctx(self, plane, x, y, tw, th):
         ssx = self.seq.subsampling_x if plane else 0
         ssy = self.seq.subsampling_y if plane else 0
@@ -1268,6 +1284,7 @@ class TileDecoder:
         r4 = (y >> 2) << ssy
         w4 = (tw >> 2) << ssx
         h4 = (th >> 2) << ssy
+        w4, h4 = self._ctx_span(c4, r4, w4, h4)
         a = self.above_levels[plane][c4:c4 + w4]
         lr = r4 % self.sb4
         ll = self.left_levels[plane][lr:lr + h4]
@@ -1299,6 +1316,7 @@ class TileDecoder:
         r4 = (y >> 2) << ssy
         w4 = (tw >> 2) << ssx
         h4 = (th >> 2) << ssy
+        w4, h4 = self._ctx_span(c4, r4, w4, h4)
         s = int(self.above_dcsign[plane][c4:c4 + w4].sum())
         lr = r4 % self.sb4
         s += int(self.left_dcsign[plane][lr:lr + h4].sum())

@@ -8,11 +8,16 @@ reconstruction.  Every block depends only on the previous frame's
 reconstruction, so the frame runs as batched tensor ops over 32x32
 blocks; window reads go through K1 (``kernels.gather``).
 
-The port covers the configuration ``golden=False``, ``deblock=False``,
-``cdef=False``, ``lr=False``, no striping; ``split16`` and ``refine``
-stay on.  Arithmetic that JAX runs in int32 (including the reference's
-``int64`` casts, which run as int32 with x64 off) runs in int32 here,
-wrap included.
+With a GOLDEN reference (the GOP keyframe's reconstruction) every
+32x32 block picks LAST or GOLDEN by its full-pel SSDs; window reads of
+the selected plane go through the two-plane K1 (``gather_windows2``).
+With ``deblock`` the returned reconstruction is loop-filtered
+(``specav1.loopfilter``).
+
+The port covers ``cdef=False``, ``lr=False``, no striping; ``split16``
+and ``refine`` stay on.  Arithmetic that JAX runs in int32 (including
+the reference's ``int64`` casts, which run as int32 with x64 off) runs
+in int32 here, wrap included.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import numpy as np
 import torch
 
 from av1tpu_torch.encoder.kernels import gather, motion, refine
-from av1tpu_torch.specav1 import inter_recon
+from av1tpu_torch.specav1 import inter_recon, loopfilter
 from av1tpu_torch.specav1 import lr as _NL
 from av1tpu_torch.specav1.transforms import Quantizer, fwd_mat, inv_tx2d_add
 
@@ -79,10 +84,21 @@ def _taps(phase: int) -> list:
     return [int(t) for t in np.asarray(inter_recon.SUBPEL_REGULAR)[phase]]
 
 
-def _mc_blocks(ref_pad, pos, mvs, size: int, ss: int, bit_depth: int):
+def _windows(ref_pad, gld_pad, ri, oy, ox, W: int):
+    """K1 windows of ref_pad, or per block of (ref_pad, gld_pad)[ri]."""
+    if gld_pad is None:
+        return gather.gather_windows(ref_pad, oy, ox, W)
+    return gather.gather_windows2(ref_pad, gld_pad, ri, oy, ox, W)
+
+
+def _mc_blocks(ref_pad, pos, mvs, size: int, ss: int, bit_depth: int,
+               gld_pad=None, ri=None):
     """Spec motion compensation for B size x size blocks: ref_pad padded
     by PAD >> ss, pos (B, 2) plane-space origins, mvs (B, 2) luma MVs in
-    1/8 pel.  Returns (B, size, size) int32 predictions."""
+    1/8 pel.  With ``gld_pad`` (the reference's _mc_blocks2; the two
+    planes replace its make_wide2 handle) block b predicts from gld_pad
+    where ri[b] is 1, else from ref_pad.  Returns (B, size, size) int32
+    predictions."""
     pad = PAD >> ss
     r0, r1 = _rounds(bit_depth)
     filt = _filt(ref_pad.device)
@@ -95,15 +111,18 @@ def _mc_blocks(ref_pad, pos, mvs, size: int, ss: int, bit_depth: int):
     fx = filt[(sx16 & 15).long()]
     iy = ((sy16 >> 4) - 3 + pad).clamp(0, Hp - W7)
     ix = ((sx16 >> 4) - 3 + pad).clamp(0, Wp - W7)
-    win = gather.gather_windows(ref_pad, iy, ix, W7)
+    win = _windows(ref_pad, gld_pad, ri, iy, ix, W7)
     return _subpel_hv(win, fx, fy, size, r0, r1, bit_depth)
 
 
-def _qpel_refine9(src_blocks, ref_pad, pos, mv8, size: int, bit_depth: int):
+def _qpel_refine9(src_blocks, ref_pad, pos, mv8, size: int, bit_depth: int,
+                  gld_pad=None, ri=None):
     """Quarter-pel refinement over the 9 even-1/8 offsets around mv8
     with exact spec MC: one (size+9)^2 window per block, 3 horizontal
     and 9 vertical 8-tap passes in int32 (the reference's band-matrix
     matmuls are exact, so the integer filter gives the same values).
+    With ``gld_pad`` (the reference's golden=True) block b reads plane
+    (ref_pad, gld_pad)[ri[b]].
     Returns (mv8_best (B, 2), pred (B, size, size) int32)."""
     r0, r1 = _rounds(bit_depth)
     W9 = size + 9
@@ -112,7 +131,7 @@ def _qpel_refine9(src_blocks, ref_pad, pos, mv8, size: int, bit_depth: int):
     Hp, Wp = ref_pad.shape
     oy = oy.clamp(0, Hp - W9)
     ox = ox.clamp(0, Wp - W9)
-    win = gather.gather_windows(ref_pad, oy, ox, W9)     # (B, W9, W9)
+    win = _windows(ref_pad, gld_pad, ri, oy, ox, W9)     # (B, W9, W9)
     blk = src_blocks.to(I32)
     # d16 = -4, 0, +4 -> sixteenth phase 12, 0, 4 at window offset 0, 1, 1
     phases = [(int(d16) & 15, 0 if d16 < 0 else 1) for d16 in (-4, 0, 4)]
@@ -202,12 +221,23 @@ def lr_off_outputs(th: int, tw: int, device):
 
 def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
                  bit_depth: int, th: int = 0, tw: int = 0,
-                 qround: float = 0.70):
+                 qround: float = 0.70, gld=None, lf_y: int = 0,
+                 lf_uv: int = 0, deblock: bool = False):
     """One P-frame.  y/u/v: SB-padded source planes; ref_*: the previous
     reconstruction (int32, same padded shape).  Returns the reference's
     16-tuple (mvs (B,2) 1/8-pel, skips (B,), lv_y, lv_u, lv_v, rec_y,
     rec_u, rec_v, strip_skip, cdefs, lr_choice, split (B,), mv16 (B,4,2),
-    skip16 (B,4), refsel (B,), lr_taps) with the filters off."""
+    skip16 (B,4), refsel (B,), lr_taps) with CDEF and LR off.
+
+    gld: the GOLDEN reference planes (y, u, v), the reference's
+    golden=True: each 32x32 block picks LAST (ref_*) or GOLDEN from its
+    full-pel SSDs, a rate-aware margin keeping LAST unless GOLDEN clearly
+    wins; quarter-pel refinement and MC read the selected plane, and
+    split quadrants inherit the parent's choice.  refsel is 0 = LAST,
+    1 = GOLDEN.  GOLDEN is evaluated at the zero MV only.
+
+    deblock: loop-filter the returned reconstruction at levels lf_y /
+    lf_uv (the split grid and a 16-px strip add their mid-block edges)."""
     dev = y.device
     H, Wd = y.shape
     n = 32
@@ -228,10 +258,29 @@ def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
     lam = (q.acq * q.acq) >> 7
 
     mv_fp = motion.search_v3(src_y, ref_pad_y, n).clamp(-_MAX_FP, _MAX_FP)
+    c_l = ref_pad_y[PAD:PAD + H, PAD:PAD + Wd].to(I32)
+    gld_pad_y = gld_pad_u = gld_pad_v = refsel = c_g = None
+    if gld is not None:
+        gld_pad_y = prep_ref(gld[0], th, tw, PAD)
+        gld_pad_u = prep_ref(gld[1], th // 2, tw // 2, PAD // 2)
+        gld_pad_v = prep_ref(gld[2], th // 2, tw // 2, PAD // 2)
+        c_g = gld_pad_y[PAD:PAD + H, PAD:PAD + Wd].to(I32)
+        # GOLDEN at the zero MV against LAST at its full-pel winner, in
+        # int32 like the reference (the golden SSD passes through
+        # float32 there; summed exactly here, then converted)
+        ssd_g = motion.zero_ssd(src_y, c_g, n).to(I32)
+        ssd_l = _ssd(blocks, motion.gather_blocks(ref_pad_y, pos, mv_fp, n))
+        # rate-aware margin: a ~6% distortion win plus ~2 bits at the
+        # frame lambda before a block switches to GOLDEN
+        use_g = ssd_g + ssd_g // 16 + 2 * lam < ssd_l
+        refsel = use_g.to(I32)
+        mv_fp = torch.where(use_g[:, None], 0, mv_fp)
     mv8, pred_y = _qpel_refine9(blocks, ref_pad_y, pos, mv_fp * 8, n,
-                                bit_depth)
-    pred_u = _mc_blocks(ref_pad_u, cpos, mv8, n // 2, 1, bit_depth)
-    pred_v = _mc_blocks(ref_pad_v, cpos, mv8, n // 2, 1, bit_depth)
+                                bit_depth, gld_pad_y, refsel)
+    pred_u = _mc_blocks(ref_pad_u, cpos, mv8, n // 2, 1, bit_depth,
+                        gld_pad_u, refsel)
+    pred_v = _mc_blocks(ref_pad_v, cpos, mv8, n // 2, 1, bit_depth,
+                        gld_pad_v, refsel)
 
     def plane_pipe(src, preds, nn, shift, nbh, nbw):
         fmat = fwd_mat("dct", nn, dev)
@@ -284,16 +333,27 @@ def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
     # refine +-8 in K2
     seed16 = mv_fp.reshape(gh, gw, 2).repeat_interleave(2, 0) \
         .repeat_interleave(2, 1).reshape(B16, 2)
-    mv16_r, ssd16_r = refine.refine_around_seeds(blocks16, ref_pad_y, pos16,
-                                                 seed16, 16, 8, PAD)
-    c0 = ref_pad_y[PAD:PAD + H, PAD:PAD + Wd].to(I32)
-    ssd16_zero = motion.zero_ssd(src_y, c0, 16)
+    ssd16_zero = motion.zero_ssd(src_y, c_l, 16)
+    ri16 = None
+    if gld is None:
+        mv16_r, ssd16_r = refine.refine_around_seeds(
+            blocks16, ref_pad_y, pos16, seed16, 16, 8, PAD)
+    else:
+        # quadrants inherit the parent's reference
+        ri16 = refsel.reshape(gh, gw).repeat_interleave(2, 0) \
+            .repeat_interleave(2, 1).reshape(B16)
+        mv16_r, ssd16_r = refine.refine_around_seeds2(
+            blocks16, ref_pad_y, gld_pad_y, ri16, pos16, seed16, 16, 8, PAD)
+        ssd16_zero = torch.where(ri16 > 0, motion.zero_ssd(src_y, c_g, 16),
+                                 ssd16_zero)
     keep = ssd16_r + ssd16_r / 16.0 < ssd16_zero
     mv16_fp = torch.where(keep[:, None], mv16_r, 0).clamp(-_MAX_FP, _MAX_FP)
     mv16, pred16_y = _qpel_refine9(blocks16, ref_pad_y, pos16, mv16_fp * 8,
-                                   16, bit_depth)
-    pred16_u = _mc_blocks(ref_pad_u, cpos16, mv16, 8, 1, bit_depth)
-    pred16_v = _mc_blocks(ref_pad_v, cpos16, mv16, 8, 1, bit_depth)
+                                   16, bit_depth, gld_pad_y, ri16)
+    pred16_u = _mc_blocks(ref_pad_u, cpos16, mv16, 8, 1, bit_depth,
+                          gld_pad_u, ri16)
+    pred16_v = _mc_blocks(ref_pad_v, cpos16, mv16, 8, 1, bit_depth,
+                          gld_pad_v, ri16)
     lv16_y, rec16_y = plane_pipe(y, pred16_y, 16, 0, g16h, g16w)
     lv16_u, rec16_u = plane_pipe(u, pred16_u, 8, 0, g16h, g16w)
     lv16_v, rec16_v = plane_pipe(v, pred16_v, 8, 0, g16h, g16w)
@@ -348,9 +408,14 @@ def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
                                 lv_u_p, lv_v_p, th, q, bit_depth)
     else:
         strip_skip = torch.zeros((nsc,), dtype=I32, device=dev)
+    if deblock:
+        rec_y_p, rec_u_p, rec_v_p = loopfilter.deblock_frame(
+            rec_y_p, rec_u_p, rec_v_p, lf_y, lf_uv, lf_uv, bit_depth, th,
+            tw, split=split.reshape(gh, gw), strip=(th % 32 == 16))
     cdefs = torch.zeros((4,), dtype=I32, device=dev)
     lr_choice, lr_taps = lr_off_outputs(th, tw, dev)
-    refsel = torch.zeros((B,), dtype=I32, device=dev)
+    if refsel is None:
+        refsel = torch.zeros((B,), dtype=I32, device=dev)
     return (mv8, skip, lv_y_p, lv_u_p, lv_v_p, rec_y_p, rec_u_p, rec_v_p,
             strip_skip, cdefs, lr_choice, split, mv16_z, skip16_z, refsel,
             lr_taps)

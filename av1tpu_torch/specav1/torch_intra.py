@@ -11,7 +11,8 @@ four quadrants with mode-derived transform kinds.  Reconstruction is the
 spec-exact integer inverse transform, so a conforming decoder
 reproduces it bit for bit.
 
-The port covers ``split16=True`` with deblocking, CDEF and LR off.
+The port covers ``split16=True`` with CDEF and LR off; deblocking
+(``specav1.loopfilter``) filters the finished reconstruction.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from av1tpu_torch.encoder.kernels.motion import first_argmin
-from av1tpu_torch.specav1 import recon, torch_inter
+from av1tpu_torch.specav1 import loopfilter, recon, torch_inter
 from av1tpu_torch.specav1.tile import MODE_TO_TXFM
 from av1tpu_torch.specav1.transforms import (Quantizer, fwd_mat,
                                              inv_tx2d_add,
@@ -590,12 +591,15 @@ def _block_step(ctx: _KeyCtx, rec_y, rec_u, rec_v, src_y, src_u, src_v,
 
 def encode_frame(y, u, v, qindex: int, nbr: int, nbc: int, bit_depth: int,
                  th: int = 0, tw: int = 0, tile_row_starts: tuple = (),
-                 qround: float = 0.70):
+                 qround: float = 0.70, lf_y: int = 0, lf_uv: int = 0,
+                 deblock: bool = False):
     """One keyframe.  y/u/v: SB-padded source planes (nbr x nbc blocks
     of 32).  Returns the reference's 19-tuple: (rec_y, rec_u, rec_v,
     lv_y, lv_u, lv_v, mode, uv_mode, skip, angle, split, m16, uv16,
-    a16, s16 grids, strip_skip, cdefs, lr_choice, lr_taps), filters
-    off."""
+    a16, s16 grids, strip_skip, cdefs, lr_choice, lr_taps), CDEF and LR
+    off.  With ``deblock`` the returned reconstruction is loop-filtered
+    at levels lf_y / lf_uv; the wavefront itself predicts from the
+    unfiltered planes (the spec's placement)."""
     dev = y.device
     H, Wd = nbr * 32, nbc * 32
     th = th or H
@@ -650,6 +654,10 @@ def encode_frame(y, u, v, qindex: int, nbr: int, nbc: int, bit_depth: int,
                                             bit_depth)
     else:
         strip_skip = torch.zeros((nsc,), dtype=I32, device=dev)
+    if deblock:
+        rec_y, rec_u, rec_v = loopfilter.deblock_frame(
+            rec_y, rec_u, rec_v, lf_y, lf_uv, lf_uv, bit_depth, th, tw,
+            split=grids[4], strip=strip)
     cdefs = torch.zeros((4,), dtype=I32, device=dev)
     lr_choice, lr_taps = torch_inter.lr_off_outputs(th, tw, dev)
     return (rec_y, rec_u, rec_v, lv_y, lv_u, lv_v, *grids, strip_skip,

@@ -1,22 +1,42 @@
 """GPU smoke test of the PyTorch port (``av1tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases (any failure exits non-zero; nothing is caught):
   1. device   require CUDA; print the card's name and power limit
   2. build    the CUDA kernels (one nvcc per source) and the port's native
               tile writer (g++), all started together, into
               av1tpu_torch/_build/
-  3. kernels  K1 gather and K2 refine against their plain PyTorch versions
-              at the 1080p main-path shapes, 8- and 10-bit, exact equality,
-              and K2's edge cases; kernel, plain and library milliseconds
-              from CUDA events, each beside its bound and roofline share
-  4. slice    1 keyframe + 7 P-frames of a seeded grainy 1920x1080 8-bit
-              clip through SpecTorchEngine(cfg, device="cuda").encode_stream;
-              both kernels must launch; fps, bits per pixel, key/P ms
-  5. conform  a 256x144 clip (1 key + 3 P, 16-px strip) decoded by the
-              port's own spec decoder must equal the port's reconstruction,
-              and the CPU run of the port must give the same bytes
+  3. kernels  K1 gather (one plane and the two-plane LAST/GOLDEN entry) and
+              K2 refine against their plain PyTorch versions at the shapes
+              that the 1080p and the 720p paths give them, 8- and 10-bit,
+              exact equality, and K2's edge cases; kernel, plain and library
+              milliseconds from CUDA events at each, beside the bound and
+              the roofline share
+  4. slices   through SpecTorchEngine(cfg, device="cuda").encode_stream at
+              qindex 96, with the launch counts set to 0 before each:
+              slice-1080p-grain   1 key + 3 P, seeded grainy 1920x1080,
+                                  golden off (one reference)
+              slice-1080p-golden  8 clean 1920x1080 frames, golden on: a
+                                  scene, a drift away from it under the cut
+                                  threshold, a cut back to it, which must
+                                  code as an inter frame on GOLDEN blocks
+              slice-720p-clean    1 key + 3 P, clean 1280x720: the GOP's
+                                  deblocking decision is on (strip + loop
+                                  filter + split), header levels nonzero
+              every kernel of a path must launch, and the port's spec
+              decoder must reproduce every plane of every frame of each
+              stream; fps, bits per pixel, Y-PSNR, key/P ms, GOLDEN share
+              per frame
+  5. conform  256x144 streams (16-px strip) decoded by the port's own spec
+              decoder must equal the port's reconstruction, and the CPU run
+              of the port must give the same bytes: a grainy golden-off
+              1 key + 3 P, and a clean golden key A, inter B, inter A with
+              the loop filter on and GOLDEN blocks
+
+With --profile, one more P-frame of the 1080p golden path and of the 720p
+clean path runs under torch.profiler after the slices: device-busy ms,
+idle share, launches, the loop filter's share and the top kernels.
 
 Before the last line come a JSON object with each kernel's launch count
 on the main path, error, timings and bound (per main-path shape under
@@ -87,6 +107,22 @@ def bound_ms(nbytes: int, ops: int = 0) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / INT8_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# the frame sizes of the full-width paths; the kernels are held against
+# their plain versions at the shapes each of them gives
+SIZES = {"1080p": (1920, 1080), "720p": (1280, 720)}
+
+
+def geometry(w: int, h: int):
+    """What a w x h frame gives the kernels: the padded luma and chroma
+    plane shapes (the engine pads the frame to multiples of 64; 64 / 32
+    samples of border a side) and the block count of the 32-grid; the
+    16-grid has four times as many."""
+    ph, pw = -(-h // 64) * 64, -(-w // 64) * 64
+    return ({"luma": (ph + 128, pw + 128),
+             "chroma": (ph // 2 + 64, pw // 2 + 64)},
+            (ph // 32) * (pw // 32))
 
 
 def grainy_frame(w: int, h: int, i: int, rng):
@@ -197,18 +233,67 @@ def phase_k2_edges(dev):
 
 
 def phase_kernels(dev):
-    """K1/K2 vs plain at every main-path shape; returns per-kernel rows."""
+    """K1/K2 vs plain at the shapes of every full-width path (SIZES), and
+    their times there; returns per-kernel errors and rows."""
     import numpy as np
     import torch
 
     from av1tpu_torch.encoder.kernels import gather, refine
     rng = np.random.default_rng(1)
-    k1_err, k1_rows = 0, []
-    # luma (1088+128) x (1920+128) and chroma (544+64) x (960+64) planes
-    planes = {"luma": (1216, 2048), "chroma": (608, 1024)}
-    # (W, B): refine regions 48/32, qpel windows 41/25, chroma MC 23/15
-    shapes = [(48, 2040), (32, 8160), (41, 2040), (25, 8160), (23, 2040),
-              (15, 8160)]
+    k1_err, k1_rows, g2_err, g2_rows = 0, [], 0, []
+    k2_err, k2_rows = 0.0, []
+    for sname, (w, h) in SIZES.items():
+        planes, b32 = geometry(w, h)
+        err, rows = phase_gather1(dev, rng, sname, planes, b32)
+        k1_err, k1_rows = max(k1_err, err), k1_rows + rows
+        err, rows = phase_gather2(dev, rng, sname, planes, b32)
+        g2_err, g2_rows = max(g2_err, err), g2_rows + rows
+        for bd in (8, 10):
+            for n, B in ((32, b32), (16, 4 * b32)):
+                bt, rt = k2_inputs(rng, B, n, bd, dev)
+                err, _, _ = k2_check(bt, rt, n, f"n={n} B={B} {bd}-bit")
+                k2_err = max(k2_err, err)
+                ms = cuda_ms(lambda: refine.refine_ssd(bt, rt, n, 8))
+                R = n + 16
+                nbytes = 4 * B * (n * n + R * R) + 12 * B
+                bms, by = bound_ms(nbytes, 3 * 289 * n * n * B)
+                if bd == 8:
+                    pms = cuda_ms(lambda: refine.refine_ssd_plain(bt, rt, n,
+                                                                  8), iters=5)
+                    k2_rows.append({
+                        "shape": f"{sname} n={n} B={B}", "ms": ms,
+                        "plain_ms": pms, "library_ms": None, "bound_ms": bms,
+                        "bound_by": by, "share": bms / ms})
+                    log(f"K2 refine {sname} n={n} B={B} 8-bit: kernel "
+                        f"{ms:.4f} ms  plain {pms:.4f}  library none  bound "
+                        f"{bms:.4f} ({by})  share {bms / ms:.3f}")
+                else:
+                    log(f"K2 refine {sname} n={n} B={B} 10-bit: kernel "
+                        f"{ms:.4f} ms  bound {bms:.4f} ({by})  share "
+                        f"{bms / ms:.3f}")
+    sizes = " and ".join(SIZES)
+    log(f"K1 equal to plain and to the library call at all shapes of "
+        f"{sizes}, 8/10-bit (max_abs_err {k1_err})")
+    log(f"K1 two-plane equal to plain at all golden-path shapes of {sizes}, "
+        "int16 and int32 planes, selector LAST / GOLDEN / mixed "
+        f"(max_abs_err {g2_err})")
+    log(f"K2 equal to plain at n=32/16 of {sizes}, 8/10-bit (max_abs_err "
+        f"{k2_err})")
+    phase_k2_edges(dev)
+    return k1_err, k1_rows, k2_err, k2_rows, g2_err, g2_rows
+
+
+def phase_gather1(dev, rng, sname, planes, b32):
+    """One-plane K1 vs plain and vs the library call at one frame size:
+    refine regions 48/32, qpel windows 41/25, chroma MC 23/15, and the
+    golden path's full-pel probe 32 at the 32-grid; 8- and 10-bit
+    content, every shape on both planes; timed where a path runs it."""
+    import torch
+
+    from av1tpu_torch.encoder.kernels import gather
+    shapes = [(48, b32), (32, 4 * b32), (41, b32), (25, 4 * b32), (23, b32),
+              (15, 4 * b32), (32, b32)]
+    worst, rows = 0, []
     for bd in (8, 10):
         for pname, (hp, wp) in planes.items():
             plane = torch.as_tensor(rng.integers(0, 1 << bd, (hp, wp)),
@@ -228,9 +313,10 @@ def phase_kernels(dev):
                 lib = library()
                 torch.cuda.synchronize()
                 err = int((got - want).abs().max())
-                k1_err = max(k1_err, err)
+                worst = max(worst, err)
                 if err or not torch.equal(lib, want):
-                    fail(f"K1 W={W} B={B} {pname} {bd}-bit differs ({err})")
+                    fail(f"K1 {sname} W={W} B={B} {pname} {bd}-bit differs "
+                         f"({err})")
                 main = (pname == "luma" and W in (48, 32, 41, 25)) or \
                     (pname == "chroma" and W in (23, 15))
                 if bd == 8 and main:
@@ -242,156 +328,420 @@ def phase_kernels(dev):
                     nbytes = (plane.numel() * plane.element_size() + 8 * B
                               + 4 * B * W * W)
                     bms, by = bound_ms(nbytes)
-                    k1_rows.append({
-                        "shape": f"{pname} W={W} B={B}", "ms": ms,
+                    rows.append({
+                        "shape": f"{sname} {pname} W={W} B={B}", "ms": ms,
                         "plain_ms": pms, "library_ms": lms,
                         "bound_ms": bms, "bound_by": by, "share": bms / ms})
-                    log(f"K1 gather {pname} W={W} B={B}: kernel {ms:.4f} ms"
-                        f"  plain {pms:.4f}  library {lms:.4f}  bound "
-                        f"{bms:.4f} ({by})  share {bms / ms:.3f}")
-    log(f"K1 equal to plain and to the library call at all shapes, "
-        f"8/10-bit (max_abs_err {k1_err})")
-    k2_err, k2_rows = 0.0, []
-    for bd in (8, 10):
-        for n, B in ((32, 2040), (16, 8160)):
-            bt, rt = k2_inputs(rng, B, n, bd, dev)
-            err, _, _ = k2_check(bt, rt, n, f"n={n} B={B} {bd}-bit")
-            k2_err = max(k2_err, err)
-            ms = cuda_ms(lambda: refine.refine_ssd(bt, rt, n, 8))
-            R = n + 16
-            nbytes = 4 * B * (n * n + R * R) + 12 * B
-            bms, by = bound_ms(nbytes, 3 * 289 * n * n * B)
-            if bd == 8:
-                pms = cuda_ms(lambda: refine.refine_ssd_plain(bt, rt, n, 8),
-                              iters=5)
-                k2_rows.append({
-                    "shape": f"n={n} B={B}", "ms": ms, "plain_ms": pms,
-                    "library_ms": None, "bound_ms": bms, "bound_by": by,
-                    "share": bms / ms})
-                log(f"K2 refine n={n} B={B} 8-bit: kernel {ms:.4f} ms  "
-                    f"plain {pms:.4f}  library none  bound {bms:.4f} ({by})"
-                    f"  share {bms / ms:.3f}")
-            else:
-                log(f"K2 refine n={n} B={B} 10-bit: kernel {ms:.4f} ms  "
-                    f"bound {bms:.4f} ({by})  share {bms / ms:.3f}")
-    log(f"K2 equal to plain at n=32/16, 8/10-bit (max_abs_err {k2_err})")
-    phase_k2_edges(dev)
-    return k1_err, k1_rows, k2_err, k2_rows
+                    log(f"K1 gather {sname} {pname} W={W} B={B}: kernel "
+                        f"{ms:.4f} ms  plain {pms:.4f}  library {lms:.4f}  "
+                        f"bound {bms:.4f} ({by})  share {bms / ms:.3f}")
+    return worst, rows
 
 
-def phase_slice(dev_name: str):
-    """1080p key + 7 P through encode_stream; returns the launch counts."""
+def phase_gather2(dev, rng, sname, planes, b32):
+    """Two-plane K1 vs plain at the golden path's seven gathers of one
+    frame size (five distinct shapes; the chroma ones run for U and for
+    V): int16 and int32 planes, selector all LAST, all GOLDEN and mixed,
+    exact.  Timed on int32 planes with a mixed selector, as the path runs
+    it."""
+    import torch
+
+    from av1tpu_torch.encoder.kernels import gather
+    shapes = [("luma", 41, b32), ("luma", 32, 4 * b32), ("luma", 25, 4 * b32),
+              ("chroma", 23, b32), ("chroma", 15, 4 * b32)]
+    worst, rows = 0, []
+    for pname, W, B in shapes:
+        hp, wp = planes[pname]
+        oy = torch.as_tensor(rng.integers(0, hp - W + 1, B),
+                             dtype=torch.int32, device=dev)
+        ox = torch.as_tensor(rng.integers(0, wp - W + 1, B),
+                             dtype=torch.int32, device=dev)
+        sels = {"LAST": torch.zeros(B, dtype=torch.int32, device=dev),
+                "GOLDEN": torch.ones(B, dtype=torch.int32, device=dev),
+                "mixed": torch.as_tensor(rng.integers(0, 2, B),
+                                         dtype=torch.int32, device=dev)}
+        for bd, dtype in ((8, torch.int32), (10, torch.int32),
+                          (10, torch.int16)):
+            p0, p1 = (torch.as_tensor(rng.integers(0, 1 << bd, (hp, wp)),
+                                      dtype=dtype, device=dev)
+                      for _ in range(2))
+            for sel, ri in sels.items():
+                got = gather.gather_windows2(p0, p1, ri, oy, ox, W)
+                want = gather.gather_windows2_plain(p0, p1, ri, oy, ox, W)
+                torch.cuda.synchronize()
+                err = int((got - want).abs().max())
+                worst = max(worst, err)
+                if err:
+                    fail(f"K1 two-plane {sname} W={W} B={B} {pname} "
+                         f"{bd}-bit {dtype} {sel} differs ({err})")
+            if bd != 8:
+                continue
+            ri = sels["mixed"]
+            ri64, oy64, ox64 = ri.long(), oy.long(), ox.long()
+
+            def library():
+                return torch.stack([p0, p1]).unfold(1, W, 1) \
+                    .unfold(2, W, 1)[ri64, oy64, ox64]
+
+            if not torch.equal(library(), want):
+                fail(f"two-plane library call differs at W={W} B={B}")
+            ms = cuda_ms(lambda: gather.gather_windows2(p0, p1, ri, oy, ox,
+                                                        W))
+            pms = cuda_ms(lambda: gather.gather_windows2_plain(
+                p0, p1, ri, oy, ox, W))
+            lms = cuda_ms(library)
+            # bytes the data needs: the plane elements some window
+            # covers (each once), the three index vectors, the output
+            ar = torch.arange(W, device=dev)
+            touched = torch.zeros((2, hp, wp), dtype=torch.bool, device=dev)
+            touched[ri64[:, None, None], (oy64[:, None] + ar)[:, :, None],
+                    (ox64[:, None] + ar)[:, None, :]] = True
+            nbytes = (int(touched.sum()) * p0.element_size() + 12 * B
+                      + 4 * B * W * W)
+            bms, by = bound_ms(nbytes)
+            rows.append({"shape": f"{sname} {pname} W={W} B={B}", "ms": ms,
+                         "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+                         "bound_by": by, "share": bms / ms})
+            log(f"K1 two-plane {sname} {pname} W={W} B={B}: kernel "
+                f"{ms:.4f} ms  plain {pms:.4f}  library {lms:.4f}  bound "
+                f"{bms:.4f} ({by})  share {bms / ms:.3f}")
+    return worst, rows
+
+
+def _counters():
+    from av1tpu_torch.encoder.kernels import gather, refine
+    return {"gather_windows": gather.gather_windows,
+            "gather_windows2": gather.gather_windows2,
+            "refine_ssd": refine.refine_ssd}
+
+
+def run_slice(name: str, frames, golden: bool, dev_name: str, Q: int = 96):
+    """One stream through encode_stream on the card, with the launch
+    counts set to 0 just before and read just after.  Each dispatch is
+    bracketed by synchronizes for the per-frame times (the host thread
+    launches and entropy-codes in turn, so this costs the stream
+    little).  Returns a dict of what the run showed."""
     import numpy as np
     import torch
 
     from av1tpu_torch.config import TpuEncoderConfig
-    from av1tpu_torch.encoder.kernels import gather, refine
-    from av1tpu_torch.spec_engine import SpecTorchEngine, noise_floor
-    W, H, N, Q = 1920, 1080, 8, 96
-    rng = np.random.default_rng(7)
-    frames = [grainy_frame(W, H, i, rng) for i in range(N)]
-    nf = noise_floor(frames[0].y)
-    if not nf > 1.0:
-        fail(f"clip noise floor {nf} would turn deblocking on")
-    cfg = TpuEncoderConfig(chunk=1, golden=False, cdef=False, lr=False)
-    eng = SpecTorchEngine(cfg, device=dev_name)
-    gather.gather_windows.launches = 0
-    refine.refine_ssd.launches = 0
+    from av1tpu_torch.spec_engine import SpecTorchEngine
+
+    class Timed(SpecTorchEngine):
+        """Records per dispatch: kind, ms, GOLDEN share, recon planes."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.rows, self.fin_ms = [], []
+
+        def _submit(self, frame, qindex, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pend = super()._submit(frame, qindex, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            kind, out = pend[0], pend[11]
+            rec = out[0:3] if kind == "key" else out[5:8]
+            share = None if kind == "key" else out[14].float().mean()
+            self.rows.append((kind, ms, share,
+                              tuple(p.to(torch.int16) for p in rec),
+                              pend[14], pend[15]))
+            return pend
+
+        def _finalize(self, pending):
+            t = time.perf_counter()
+            res = SpecTorchEngine._finalize(pending)
+            self.fin_ms.append((time.perf_counter() - t) * 1e3)
+            return res
+
+    N = len(frames)
+    H, W = frames[0].height, frames[0].width
+    cfg = TpuEncoderConfig(chunk=1, golden=golden, cdef=False, lr=False)
+    eng = Timed(cfg, device=dev_name)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = list(eng.encode_stream(frames, Q))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"gather": gather.gather_windows.launches,
-                "refine": refine.refine_ssd.launches}
-    if eng._gop_deblock:
-        fail("deblocking decision turned on for the grainy clip")
-    if len(out) != N or not out[0][1] or any(k for _, k in out[1:]):
-        fail(f"expected 1 key + {N - 1} P, got {[k for _, k in out]}")
-    if eng._ref_dev[0].device.type != "cuda":
-        fail("reference planes are not on the card")
-    if launches["gather"] == 0 or launches["refine"] == 0:
-        fail(f"main path did not launch both kernels: {launches}")
-    bits = sum(len(p) * 8 for p, _ in out)
-    bpp = bits / (N * W * H)
-    log(f"slice 1080p: {N} frames in {wall:.3f} s = {N / wall:.3f} fps, "
-        f"{bpp:.5f} bpp, kernel launches {launches}")
-    # per-frame device time: submit (upload + encode + pack) to sync
-    eng.start_stream()
-    key_ms, p_ms, fin_ms, mse = None, [], [], []
-    for i, f in enumerate(frames):
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if len(out) != N or len(eng.rows) != N:
+        fail(f"{name}: {len(out)} payloads for {N} frames")
+    if any(t.device.type != "cuda" for t in eng._ref_dev) or \
+            any(t.device.type != "cuda" for t in eng._golden_dev):
+        fail(f"{name}: reference planes are not on the card")
+    hp, wp = geometry(W, H)[0]["luma"]
+    if tuple(eng._ref_dev[0].shape) != (hp - 128, wp - 128):
+        fail(f"{name}: the engine's planes are {tuple(eng._ref_dev[0].shape)}"
+             f", the kernel phase assumed {(hp - 128, wp - 128)}")
+    mse = [float(np.mean((r[3][0][:H, :W].cpu().numpy().astype(np.float64)
+                          - f.y) ** 2)) for r, f in zip(eng.rows, frames)]
+    psnr = 10 * np.log10(255.0 ** 2 / np.mean(mse))
+    if not np.isfinite(psnr) or psnr < 28.0:
+        fail(f"{name}: Y-PSNR {psnr} dB")
+    keys = [k for _, k in out]
+    n_p = N - sum(keys)
+    key_ms = [r[1] for r in eng.rows if r[0] == "key"]
+    p_ms = [r[1] for r in eng.rows if r[0] != "key"]
+    shares = [None if r[2] is None else float(r[2]) for r in eng.rows]
+    bpp = sum(len(p) * 8 for p, _ in out) / (N * W * H)
+    log(f"{name}: {N} frames in {wall:.3f} s = {N / wall:.3f} fps, "
+        f"{bpp:.5f} bpp, Y-PSNR {psnr:.3f} dB (q{Q}), key "
+        f"{np.mean(key_ms):.1f} ms, P {np.mean(p_ms):.1f} ms (min "
+        f"{min(p_ms):.1f}), host finalize key "
+        f"{np.mean([m for m, k in zip(eng.fin_ms, keys) if k]):.1f} ms, P "
+        f"{np.mean([m for m, k in zip(eng.fin_ms, keys) if not k]):.1f} ms")
+    log(f"{name}: frame types {['K' if k else 'P' for k in keys]}, bytes "
+        f"{[len(p) for p, _ in out]}, GOLDEN share per frame "
+        f"{['-' if x is None else round(x, 4) for x in shares]}")
+    log(f"{name}: launches {launches}, per P-frame "
+        f"{ {k: round(v / n_p, 2) for k, v in launches.items()} }, filter "
+        f"levels (y, uv) per frame {[(r[4], r[5]) for r in eng.rows]}")
+    return {"eng": eng, "out": out, "keys": keys, "launches": launches,
+            "shares": shares, "frame": frames[-1]}
+
+
+def decode_check(name: str, r: dict) -> None:
+    """The port's spec decoder on the whole stream of a run: every plane
+    of every frame must equal the encoder's reconstruction, which holds
+    the motion vectors, the reference choice and the loop filter of the
+    full-size path to a second statement of each."""
+    import numpy as np
+
+    from av1tpu_torch.specav1 import decoder
+    t = time.perf_counter()
+    dec = decoder.decode_stream([p for p, _ in r["out"]])
+    secs = time.perf_counter() - t
+    rows = r["eng"].rows
+    if len(dec) != len(rows):
+        fail(f"{name}: the spec decoder returned {len(dec)} frames")
+    for i, (d, row) in enumerate(zip(dec, rows)):
+        for pl in range(3):
+            hh, ww = d[pl].shape
+            rec = row[3][pl][:hh, :ww].cpu().numpy()
+            if not np.array_equal(np.asarray(d[pl], np.int64),
+                                  rec.astype(np.int64)):
+                fail(f"{name}: decoded frame {i} plane {pl} != port recon")
+    log(f"{name}: the port's spec decoder reproduces the recon of all "
+        f"{len(rows)} frames exactly, three planes each (decode {secs:.1f} s "
+        "on the host)")
+
+
+def need_launches(name: str, launches: dict, kernels) -> None:
+    idle = [k for k in kernels if launches[k] == 0]
+    if idle:
+        fail(f"{name}: the path did not launch {idle}: {launches}")
+
+
+def phase_slices(dev_name: str):
+    """The three full-size paths; returns each path's launch counts and
+    its run (engine and last frame included)."""
+    import numpy as np
+
+    from av1tpu_torch.spec_engine import noise_floor
+    from av1tpu_torch.specav1 import headers, obu
+    from av1tpu_torch.utils.cleansrc import clean_frame
+    from av1tpu_torch.utils.testsrc import Frame
+    W, H = SIZES["1080p"]
+    counts, runs = {}, {}
+
+    # one reference, grainy: the earlier slice at a smaller depth
+    rng = np.random.default_rng(7)
+    frames = [grainy_frame(W, H, i, rng) for i in range(4)]
+    if not noise_floor(frames[0].y) > 1.0:
+        fail("grainy clip's noise floor is not above 1")
+    r = run_slice("slice-1080p-grain", frames, False, dev_name)
+    if r["keys"] != [True, False, False, False] or r["eng"]._gop_deblock:
+        fail(f"slice-1080p-grain: frame types {r['keys']}, deblock "
+             f"{r['eng']._gop_deblock}")
+    need_launches("slice-1080p-grain", r["launches"],
+                  ("gather_windows", "refine_ssd"))
+    if r["launches"]["gather_windows2"]:
+        fail("slice-1080p-grain launched the two-plane gather")
+    decode_check("slice-1080p-grain", r)
+    counts["slice-1080p-grain"] = r["launches"]
+
+    # two references: scene A, five blends towards scene B (each step
+    # under the scene-cut threshold), then a cut back to A
+    frames = [clean_frame(W, H, 0, 0)]
+    for k in range(1, 6):
+        fa, fb = clean_frame(W, H, k, 0), clean_frame(W, H, k, 1)
+        frames.append(Frame(*(
+            (((5 - k) * pa.astype(np.int32) + k * pb.astype(np.int32) + 2)
+             // 5).astype(np.uint8)
+            for pa, pb in ((fa.y, fb.y), (fa.u, fb.u), (fa.v, fb.v)))))
+    frames += [clean_frame(W, H, 6, 0), clean_frame(W, H, 7, 0)]
+    r = run_slice("slice-1080p-golden", frames, True, dev_name)
+    if r["keys"] != [True] + [False] * 7:
+        fail(f"slice-1080p-golden: expected one keyframe and an inter-coded "
+             f"cut back, got {r['keys']}")
+    sh = r["shares"][1:]
+    if not any(x > 0 for x in sh) or not any(x < 1 for x in sh):
+        fail(f"slice-1080p-golden: GOLDEN shares {sh}: both references "
+             "must be chosen")
+    if sh[5] <= 0.5:
+        fail(f"slice-1080p-golden: the cut-back frame chose GOLDEN on only "
+             f"{sh[5]} of its blocks")
+    need_launches("slice-1080p-golden", r["launches"],
+                  ("gather_windows", "gather_windows2", "refine_ssd"))
+    decode_check("slice-1080p-golden", r)
+    counts["slice-1080p-golden"] = r["launches"]
+    runs["slice-1080p-golden"] = r
+
+    # clean 720p: 720 % 32 == 16 and 1280 % 16 == 0, so the GOP filters
+    W, H = SIZES["720p"]
+    frames = [clean_frame(W, H, i, 0) for i in range(4)]
+    if noise_floor(frames[0].y) > 1.0:
+        fail("clean 720p clip's noise floor is above 1")
+    r = run_slice("slice-720p-clean", frames, True, dev_name)
+    if r["keys"] != [True, False, False, False] or not r["eng"]._gop_deblock:
+        fail(f"slice-720p-clean: frame types {r['keys']}, deblock "
+             f"{r['eng']._gop_deblock}")
+    seq, levels = None, []
+    for payload, _ in r["out"]:
+        for o in obu.parse_obus(payload):
+            if o.type == obu.OBU_SEQUENCE_HEADER:
+                seq = headers.parse_sequence_header(o.payload)
+            elif o.type == obu.OBU_FRAME:
+                levels.append(tuple(headers.parse_frame_header(
+                    o.payload, seq).lf.level))
+    if len(levels) != 4 or not all(all(lv) for lv in levels):
+        fail(f"slice-720p-clean: header filter levels {levels}")
+    log(f"slice-720p-clean: deblocking on, frame-header levels {levels}")
+    need_launches("slice-720p-clean", r["launches"],
+                  ("gather_windows", "gather_windows2", "refine_ssd"))
+    decode_check("slice-720p-clean", r)
+    counts["slice-720p-clean"] = r["launches"]
+    runs["slice-720p-clean"] = r
+    return counts, runs
+
+
+def phase_profile(runs: dict) -> None:
+    """One more P-frame per two-reference path: its time with the loop
+    filter bracketed by synchronizes, then the same frame under
+    torch.profiler for the device-busy time and the launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from av1tpu_torch.specav1 import loopfilter
+
+    def submit(eng, frame):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        pend = eng._submit(f, Q, is_key=(i == 0))
+        eng._submit(frame, 96, is_key=False, refresh=False)
         torch.cuda.synchronize()
-        dt = (time.perf_counter() - t) * 1e3
-        rec_y = eng._ref[0][:H, :W].astype(np.float64)
-        mse.append(np.mean((rec_y - f.y) ** 2))
-        t = time.perf_counter()
-        eng._finalize(pend)
-        fin_ms.append((time.perf_counter() - t) * 1e3)
-        if i == 0:
-            key_ms = dt
-        else:
-            p_ms.append(dt)
-    log(f"slice 1080p: key {key_ms:.1f} ms, P {np.mean(p_ms):.1f} ms "
-        f"(min {min(p_ms):.1f}), host finalize {np.mean(fin_ms):.1f} "
-        f"ms/frame, Y-PSNR {10 * np.log10(255.0 ** 2 / np.mean(mse)):.3f} "
-        f"dB (key q{Q})")
-    return launches
+        return (time.perf_counter() - t) * 1e3
+
+    for name, r in runs.items():
+        eng, frame = r["eng"], r["frame"]
+        spent = [0.0]
+        orig = loopfilter.deblock_frame
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = orig(*a, **k)
+            torch.cuda.synchronize()
+            spent[0] += (time.perf_counter() - t) * 1e3
+            return res
+
+        loopfilter.deblock_frame = timed
+        ms = min(submit(eng, frame) for _ in range(3))
+        filt = spent[0] / 3
+        loopfilter.deblock_frame = orig
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            submit(eng, frame)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in rows) / 1e3
+        launches = sum(e.count for e in rows)
+        if not busy > 0:
+            fail(f"{name}: the profiler saw no device time")
+        log(f"profile {name}: P-frame {ms:.1f} ms (best of 3), loop filter "
+            f"{filt:.1f} ms of it, device busy {busy:.2f} ms, idle share "
+            f"{1 - busy / ms:.3f}, {launches} device launches")
+        rows.sort(key=lambda e: -e.self_device_time_total)
+        for e in rows[:6]:
+            log(f"profile {name}:   {e.self_device_time_total / 1e3:.3f} ms "
+                f"x{e.count}  {e.key[:90]}")
 
 
 def phase_conform(dev_name: str):
-    """256x144 stream: the port's spec decoder == port recon; CPU bytes
-    == GPU bytes."""
+    """256x144 streams: the port's spec decoder == port recon; CPU bytes
+    == GPU bytes.  A grainy golden-off clip, and a clean golden one (key
+    A, inter B, inter A; frame types pinned) that turns the loop filter
+    on and must choose GOLDEN blocks."""
     import numpy as np
 
     from av1tpu_torch.config import TpuEncoderConfig
     from av1tpu_torch.spec_engine import SpecTorchEngine
     from av1tpu_torch.specav1 import decoder
+    from av1tpu_torch.utils.cleansrc import clean_frame
 
-    def run(device):
-        rng = np.random.default_rng(3)
-        frames = [grainy_frame(256, 144, i, rng) for i in range(4)]
-        eng = SpecTorchEngine(TpuEncoderConfig(chunk=1, golden=False,
+    def run(device, golden):
+        if golden:
+            frames = [clean_frame(256, 144, 0, 0), clean_frame(256, 144, 5, 1),
+                      clean_frame(256, 144, 1, 0)]
+        else:
+            rng = np.random.default_rng(3)
+            frames = [grainy_frame(256, 144, i, rng) for i in range(4)]
+        eng = SpecTorchEngine(TpuEncoderConfig(chunk=1, golden=golden,
                                                cdef=False, lr=False),
                               device=device)
         eng.start_stream()
-        payloads, recons = [], []
+        payloads, recons, n_golden = [], [], 0
         for i, f in enumerate(frames):
             pend = eng._submit(f, 96, is_key=(i == 0))
+            if i:
+                n_golden += int(pend[11][14].sum())
             recons.append(eng._ref)
             payloads.append(eng._finalize(pend)[0])
-        return payloads, recons
+        return payloads, recons, n_golden, eng._gop_deblock
 
-    payloads, recons = run(dev_name)
-    dec = decoder.decode_stream(payloads)
-    if len(dec) != 4:
-        fail(f"spec decoder returned {len(dec)} frames")
-    for i, (d, r) in enumerate(zip(dec, recons)):
-        for pl in range(3):
-            hh, ww = d[pl].shape
-            if not np.array_equal(np.asarray(d[pl], np.int64),
-                                  r[pl][:hh, :ww].astype(np.int64)):
-                fail(f"decoded frame {i} plane {pl} != port recon")
-    log("conformance 256x144: the port's spec decoder "
-        "(av1tpu_torch.specav1.decoder) reproduces the port's recon "
-        "exactly, 1 key + 3 P")
-    cpu_payloads, _ = run("cpu")
-    if cpu_payloads != payloads:
-        fail("CPU and GPU runs of the port gave different streams")
-    log("conformance 256x144: CPU plain path and GPU kernels give "
-        "byte-identical streams")
+    for golden in (False, True):
+        what = ("clean, golden on, loop filter on" if golden
+                else "grainy, golden off")
+        payloads, recons, n_golden, deblock = run(dev_name, golden)
+        if deblock != golden or bool(n_golden) != golden:
+            fail(f"conformance ({what}): deblock {deblock}, GOLDEN blocks "
+                 f"{n_golden}")
+        dec = decoder.decode_stream(payloads)
+        if len(dec) != len(payloads):
+            fail(f"spec decoder returned {len(dec)} frames")
+        for i, (d, r) in enumerate(zip(dec, recons)):
+            for pl in range(3):
+                hh, ww = d[pl].shape
+                if not np.array_equal(np.asarray(d[pl], np.int64),
+                                      r[pl][:hh, :ww].astype(np.int64)):
+                    fail(f"conformance ({what}): decoded frame {i} plane "
+                         f"{pl} != port recon")
+        log(f"conformance 256x144 ({what}): the port's spec decoder "
+            "(av1tpu_torch.specav1.decoder) reproduces the port's recon "
+            f"exactly, {len(payloads)} frames, {n_golden} GOLDEN blocks")
+        if run("cpu", golden)[0] != payloads:
+            fail(f"conformance ({what}): CPU and GPU runs of the port gave "
+                 "different streams")
+        log(f"conformance 256x144 ({what}): CPU plain path and GPU kernels "
+            "give byte-identical streams")
 
 
-def kernel_entry(name, source, replaces, launches, err, rows):
-    """One kernel of the JSON line: the first (main) shape's numbers at
-    the top level, every shape under "shapes"."""
+def kernel_entry(name, source, replaces, counts, err, rows):
+    """One kernel of the JSON line: the first (1080p) shape's numbers at
+    the top level, every shape of every frame size under "shapes", each
+    labelled with its size; "launches" is the count
+    of the two-reference 1080p path, every path's under
+    "launches_by_path"."""
+    launches = counts["slice-1080p-golden"][name]
+    by_path = {path: c[name] for path, c in counts.items()}
     top = {k: rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "share", "library_ms")}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            **top, "shapes": rows}
+            **top, "launches_by_path": by_path, "shapes": rows}
 
 
 def main() -> int:
@@ -411,17 +761,23 @@ def main() -> int:
     from av1tpu_torch import device as D
     D.resolve_device(dev_name)
     phase_build()
-    k1_err, k1_rows, k2_err, k2_rows = phase_kernels(torch.device(dev_name))
-    launches = phase_slice(dev_name)
+    k1_err, k1_rows, k2_err, k2_rows, g2_err, g2_rows = phase_kernels(
+        torch.device(dev_name))
+    counts, runs = phase_slices(dev_name)
+    if "--profile" in sys.argv[1:]:
+        phase_profile(runs)
     phase_conform(dev_name)
 
     print(json.dumps({"kernels": [
         kernel_entry("gather_windows", "av1tpu_torch/csrc/gather.cu",
                      "av1tpu/encoder/kernels/pallas_gather.py:42",
-                     launches["gather"], k1_err, k1_rows),
+                     counts, k1_err, k1_rows),
+        kernel_entry("gather_windows2", "av1tpu_torch/csrc/gather.cu",
+                     "av1tpu/encoder/kernels/pallas_gather.py:145",
+                     counts, g2_err, g2_rows),
         kernel_entry("refine_ssd", "av1tpu_torch/csrc/refine.cu",
                      "av1tpu/encoder/kernels/pallas_motion.py:28",
-                     launches["refine"], k2_err, k2_rows)]}), flush=True)
+                     counts, k2_err, k2_rows)]}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,82 @@ def test_gather_kernel_matches_plain(cuda, dtype):
                                                             W))
 
 
+def _pair(rng, dtype, dev, hp=608, wp=1024):
+    return [torch.as_tensor(rng.integers(0, 1024, (hp, wp)), dtype=dtype,
+                            device=dev) for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sel", ["last", "golden", "mixed"])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_gather2_kernel_matches_plain(cuda, dtype, sel):
+    """Two-plane K1 at the golden path's widths, ragged block counts,
+    with every block on plane 0, on plane 1, and mixed."""
+    rng = np.random.default_rng(11)
+    p0, p1 = _pair(rng, dtype, cuda)
+    for W, B in ((41, 301), (32, 1003), (25, 1003), (23, 301), (15, 1003)):
+        oy = torch.as_tensor(rng.integers(0, 608 - W + 1, B),
+                             dtype=torch.int32, device=cuda)
+        ox = torch.as_tensor(rng.integers(0, 1024 - W + 1, B),
+                             dtype=torch.int32, device=cuda)
+        ri = {"last": torch.zeros(B), "golden": torch.ones(B),
+              "mixed": torch.as_tensor(rng.integers(0, 2, B))}[sel] \
+            .to(dtype=torch.int32, device=cuda)
+        n0 = gather.gather_windows2.launches
+        got = gather.gather_windows2(p0, p1, ri, oy, ox, W)
+        assert gather.gather_windows2.launches == n0 + 1
+        assert torch.equal(got, gather.gather_windows2_plain(p0, p1, ri, oy,
+                                                             ox, W))
+        one = gather.gather_windows_plain(p1 if sel == "golden" else p0, oy,
+                                          ox, W)
+        if sel != "mixed":
+            assert torch.equal(got, one)
+
+
+@pytest.mark.cuda
+def test_gather2_kernel_clamps_origins_and_selector(cuda):
+    """Origins at and beyond every edge clamp into a single plane, and a
+    selector outside {0, 1} clamps to it: nothing reads out of bounds."""
+    rng = np.random.default_rng(12)
+    p0, p1 = _pair(rng, torch.int32, cuda, 96, 160)
+    W = 25
+    ys = [-7, 0, 96 - W, 96 - W + 1, 96, 500]
+    xs = [-3, 0, 160 - W, 160 - W + 1, 160, 900]
+    oy = torch.tensor([y for y in ys for _ in xs], dtype=torch.int32,
+                      device=cuda)
+    ox = torch.tensor(xs * len(ys), dtype=torch.int32, device=cuda)
+    ri = torch.as_tensor(rng.integers(-2, 4, oy.shape[0]), dtype=torch.int32,
+                         device=cuda)
+    got = gather.gather_windows2(p0, p1, ri, oy, ox, W)
+    assert torch.equal(got, gather.gather_windows2_plain(p0, p1, ri, oy, ox,
+                                                         W))
+    b = len(xs) * 5 + 5                     # the far corner
+    want = (p1 if int(ri[b]) > 0 else p0)[96 - W:, 160 - W:]
+    assert torch.equal(got[b], want)
+
+
+@pytest.mark.cuda
+def test_gather2_wrapper_rejects_bad_inputs(cuda):
+    p0 = torch.zeros((64, 64), dtype=torch.int32, device=cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    n0 = gather.gather_windows2.launches
+    with pytest.raises(ValueError):      # planes of two shapes
+        gather.gather_windows2(p0, p0[:32], idx, idx, idx, 8)
+    with pytest.raises(TypeError):       # planes of two dtypes
+        gather.gather_windows2(p0, p0.to(torch.int16), idx, idx, idx, 8)
+    with pytest.raises(TypeError):
+        gather.gather_windows2(p0.float(), p0.float(), idx, idx, idx, 8)
+    with pytest.raises(ValueError):      # selector of another length
+        gather.gather_windows2(p0, p0, idx[:3], idx, idx, 8)
+    with pytest.raises(ValueError):      # a tensor on another device
+        gather.gather_windows2(p0, p0.cpu(), idx, idx, idx, 8)
+    with pytest.raises(ValueError):
+        gather.gather_windows2(p0, p0, idx.cpu(), idx, idx, 8)
+    with pytest.raises(ValueError):      # window larger than the plane
+        gather.gather_windows2(p0, p0, idx, idx, idx, 65)
+    assert gather.gather_windows2.launches == n0
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_bad_inputs(cuda):
     """Inputs the kernels would read out of bounds raise before launch."""
@@ -155,3 +231,32 @@ def test_gpu_stream_equals_cpu_stream(cuda):
                                  device=d).encode_stream(frames, 96))
             for d in ("cuda", "cpu")]
     assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_gpu_golden_deblock_stream_equals_cpu_stream(cuda):
+    """A clean two-scene clip (golden on; 144 % 32 == 16 and clean, so
+    the loop filter and the strip are on) through encode_stream: the
+    card's bytes equal the CPU's, with GOLDEN blocks chosen and all
+    three kernels launched."""
+    from av1tpu_torch.config import TpuEncoderConfig
+    from av1tpu_torch.spec_engine import SpecTorchEngine
+    from av1tpu_torch.utils.cleansrc import clean_frame
+    frames = [clean_frame(256, 144, 0, 0), clean_frame(256, 144, 1, 0),
+              clean_frame(256, 144, 5, 1), clean_frame(256, 144, 2, 0)]
+    cfg = dict(chunk=1, golden=True, cdef=False, lr=False)
+    n0 = (gather.gather_windows.launches, gather.gather_windows2.launches,
+          refine.refine_ssd.launches)
+    outs = []
+    for d in ("cuda", "cpu"):
+        eng = SpecTorchEngine(TpuEncoderConfig(**cfg), device=d)
+        eng.start_stream()
+        pend = [eng._submit(f, 96, is_key=(i == 0))
+                for i, f in enumerate(frames)]
+        assert eng._gop_deblock and all(p[14] > 0 for p in pend)
+        assert int(pend[3][11][14].sum()) > 0      # GOLDEN blocks
+        outs.append([eng._finalize(p) for p in pend])
+    assert outs[0] == outs[1]
+    n1 = (gather.gather_windows.launches, gather.gather_windows2.launches,
+          refine.refine_ssd.launches)
+    assert all(b > a for a, b in zip(n0, n1))

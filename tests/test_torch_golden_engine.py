@@ -1,0 +1,93 @@
+"""PyTorch port (av1tpu_torch) vs the JAX package: a two-reference,
+loop-filtered GOP through both engines.
+
+A "flash" GOP of clean 128x128 frames with the frame types pinned: key
+A, inter B (another scene), inter A again.  The source is clean and
+128 % 32 == 0, so the GOP's deblocking decision is on; LAST (B's recon)
+is useless for the third frame while GOLDEN (A's filtered recon) is
+nearly it.  The port's bytes must equal ``SpecTpuEngine``'s; both
+decoders must reproduce the port's reconstruction (the JAX package's
+takes its vectorized uniform-grid filter where no block split, the
+port's always the grid-driven one).
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from av1tpu.config import TpuEncoderConfig
+from av1tpu.spec_engine import SpecTpuEngine
+from av1tpu.specav1 import decoder as j_decoder
+from av1tpu_torch import config as port_config
+from av1tpu_torch.spec_engine import SpecTorchEngine
+from av1tpu_torch.specav1 import decoder
+from av1tpu_torch.utils.cleansrc import clean_frame
+
+torch.set_num_threads(1)
+W, H = 128, 128
+
+
+def _encode(eng, frames):
+    """(payloads, recons, GOLDEN blocks per inter frame, engine)."""
+    eng.start_stream()
+    payloads, recons, n_gold = [], [], []
+    for i, f in enumerate(frames):
+        pend = eng._submit(f, 96, is_key=(i == 0))
+        recons.append(eng._ref)
+        if i:
+            n_gold.append(int(np.asarray(pend[11][14]).sum()))
+        payloads.append(bytes(eng._finalize(pend)[0]))
+    return payloads, recons, n_gold, eng
+
+
+@functools.lru_cache(maxsize=None)
+def _gop():
+    """{(engine, golden): _encode(...)} of the flash GOP, encoded once."""
+    frames = [clean_frame(W, H, 0, 0), clean_frame(W, H, 5, 1),
+              clean_frame(W, H, 1, 0)]
+    out = {}
+    for golden in (True, False):
+        cfg = dict(chunk=1, golden=golden, cdef=False, lr=False)
+        out["jax", golden] = _encode(SpecTpuEngine(TpuEncoderConfig(**cfg)),
+                                     frames)
+        out["port", golden] = _encode(
+            SpecTorchEngine(port_config.TpuEncoderConfig(**cfg),
+                            device="cpu"), frames)
+    return out
+
+
+@pytest.mark.parametrize("golden", [True, False])
+def test_deblock_gop_matches_jax_engine(golden):
+    """Same GOLDEN choices, same filtered recons, same bytes."""
+    jp, jr, jg, je = _gop()["jax", golden]
+    tp, tr, tg, te = _gop()["port", golden]
+    assert je._gop_deblock and te._gop_deblock
+    assert tg == jg
+    for a, b in zip(jr, tr):
+        for pl in range(3):
+            np.testing.assert_array_equal(np.asarray(a[pl]), b[pl])
+    assert tp == jp, [len(p) for p in tp + jp]
+
+
+@pytest.mark.parametrize("dec", [decoder, j_decoder],
+                         ids=["port-decoder", "jax-package-decoder"])
+def test_golden_deblock_gop_decodes_to_port_recon(dec):
+    payloads, recons, _, _ = _gop()["port", True]
+    frames_dec = dec.decode_stream(payloads)
+    assert len(frames_dec) == 3
+    for d, r in zip(frames_dec, recons):
+        for pl in range(3):
+            hh, ww = d[pl].shape
+            np.testing.assert_array_equal(np.asarray(d[pl], np.int64),
+                                          r[pl][:hh, :ww])
+
+
+def test_golden_flash_back_frame_is_smaller():
+    """Frame 3 predicts from GOLDEN and is under half its size in the
+    one-reference encode of the same GOP."""
+    payloads, _, n_gold, _ = _gop()["port", True]
+    assert n_gold[1] > 8, n_gold
+    assert _gop()["port", False][2] == [0, 0]
+    assert len(payloads[2]) < len(_gop()["port", False][0][2]) // 2

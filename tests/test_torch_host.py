@@ -4,8 +4,9 @@ The port keeps copies of the JAX package's framework-free modules: the
 spec decoder, the header/OBU writer, the native tile writer and its
 loader, and the constant tables.  Each copy must behave exactly as its
 original: the same planes from the same stream, the same header bytes,
-the same tile bytes, the same tables.  None of these tests compiles a
-JAX program.
+the same tile bytes, the same tables; but for the tile decoder's three
+marked departures, where the copy follows libaom and its original does
+not.  None of these tests compiles a JAX program.
 """
 
 import numpy as np
@@ -21,9 +22,10 @@ from av1tpu.specav1 import recon as j_recon
 from av1tpu.specav1 import writer as j_writer
 from av1tpu_torch import spec_engine
 from av1tpu_torch.config import TpuEncoderConfig
-from av1tpu_torch.specav1 import (cdfs, decoder, inter_recon, native, obu,
-                                  recon, writer)
+from av1tpu_torch.specav1 import (cdfs, decoder, headers, inter_recon, native,
+                                  obu, recon, writer)
 from av1tpu_torch.utils import testsrc
+from av1tpu_torch.utils.cleansrc import clean_frame
 
 torch.set_num_threads(1)
 CFG = dict(chunk=1, golden=False, cdef=False, lr=False)
@@ -40,16 +42,34 @@ def _grainy(w, h, n, seed):
     return out
 
 
-def _port_encode(w, h, n, seed):
+def _port_encode(w, h, n, seed, frames=None, golden=False):
     """(engine, pending frames, recons) of a key + P CPU encode by the
-    port."""
-    eng = spec_engine.SpecTorchEngine(TpuEncoderConfig(**CFG), device="cpu")
+    port; the first frame is the key."""
+    cfg = dict(CFG, golden=golden)
+    eng = spec_engine.SpecTorchEngine(TpuEncoderConfig(**cfg), device="cpu")
     eng.start_stream()
     pend, recons = [], []
-    for i, f in enumerate(_grainy(w, h, n, seed)):
+    for i, f in enumerate(frames or _grainy(w, h, n, seed)):
         pend.append(eng._submit(f, 96, is_key=(i == 0)))
         recons.append(eng._ref)
     return eng, pend, recons
+
+
+def _flash_gop(w, h):
+    """Clean key A, inter B, inter A: deblocking on, GOLDEN blocks in
+    the third frame."""
+    return [clean_frame(w, h, 0, 0), clean_frame(w, h, 5, 1),
+            clean_frame(w, h, 1, 0)]
+
+
+def _flat_gop(w, h):
+    """Flat frames a few levels apart: nothing splits, so the frame's
+    transform grid is uniform 32x32."""
+    out = []
+    for lvl in (100, 104, 101):
+        f = clean_frame(w, h, 0, 0)
+        out.append(testsrc.Frame(y=np.full_like(f.y, lvl), u=f.u, v=f.v))
+    return out
 
 
 # 96x80 codes a 16-px bottom strip on both frame types
@@ -70,15 +90,102 @@ def test_decoder_matches_jax_package_decoder(w, h):
                                           r[pl][:hh, :ww])
 
 
+def _drift_gop(w, h):
+    """Clean scene A and two blends towards scene B: smooth content, on
+    which the search settles on long vectors."""
+    out = [clean_frame(w, h, 0, 0)]
+    for k in (1, 2):
+        fa, fb = clean_frame(w, h, k, 0), clean_frame(w, h, k, 1)
+        out.append(testsrc.Frame(*(
+            (((5 - k) * pa.astype(np.int32) + k * pb.astype(np.int32) + 2)
+             // 5).astype(np.uint8)
+            for pa, pb in ((fa.y, fb.y), (fa.u, fb.u), (fa.v, fb.v)))))
+    return out
+
+
+# heights 24 past a multiple of 32 (the geometry of 1080 rows: the last
+# block row overhangs the frame by 8 rows), in one and in four tile rows;
+# and four tile rows with long vectors beside the tile rows' ends
+@pytest.mark.parametrize("w,h,gop", [(128, 88, None), (64, 536, None),
+                                     (128, 512, _drift_gop)])
+def test_decoder_departures_follow_libaom(w, h, gop):
+    """The port's tile decoder departs from its original in three places:
+    the coefficient contexts count only the units inside the frame, the
+    MV grid keeps a block's coded size and not its visible part (both
+    matter where a block overhangs the frame's edge), and the MV
+    candidates are clamped against the frame's edges, not the tile's.  On
+    streams where the original decoder loses the reconstruction, the port's
+    must reproduce it, as libaom does where the system has it."""
+    from av1tpu.conformance import aomcodec
+    frames = gop(w, h) if gop else None
+    eng, pend, recons = _port_encode(w, h, 2, w + h, frames=frames,
+                                     golden=gop is not None)
+    payloads = [eng._finalize(p)[0] for p in pend]
+    decoded = [decoder.decode_stream(payloads)]
+    if aomcodec.available():
+        decoded.append(aomcodec.decode_stream(payloads))
+    for got in decoded:
+        assert len(got) == len(recons)
+        for g, r in zip(got, recons):
+            for pl in range(3):
+                hh, ww = np.asarray(g[pl]).shape
+                assert hh == (h if pl == 0 else h // 2)
+                np.testing.assert_array_equal(np.asarray(g[pl], np.int64),
+                                              r[pl][:hh, :ww])
+    # a departure stands only while the original loses these streams
+    original = j_decoder.decode_stream(payloads)
+    assert any(not np.array_equal(o[pl], g[pl])
+               for o, g in zip(original, decoded[0]) for pl in range(3))
+
+
+# uniform 32x32 grid (the JAX package's decoder takes its vectorized
+# filter there), split blocks, and split blocks + the 16-px strip
+@pytest.mark.parametrize("w,h,gop", [(64, 64, _flat_gop),
+                                     (128, 128, _flash_gop),
+                                     (96, 80, _flash_gop)])
+def test_decoder_matches_jax_package_decoder_deblocked(w, h, gop):
+    """A two-reference stream with the loop filter on: the port's
+    decoder (always the grid-driven numpy filter) gives the JAX
+    package's decoder's planes, and both equal the port's recon."""
+    eng, pend, recons = _port_encode(w, h, 3, 0, frames=gop(w, h),
+                                     golden=True)
+    assert eng._gop_deblock and all(p[14] > 0 for p in pend)
+    splits = sum(int(p[11][10 if p[0] == "key" else 11].sum())
+                 for p in pend)
+    assert (splits == 0) == (gop is _flat_gop)
+    payloads = [eng._finalize(p)[0] for p in pend]
+    got = decoder.decode_stream(payloads)
+    want = j_decoder.decode_stream(payloads)
+    assert len(got) == len(want) == 3
+    for g, wnt, r in zip(got, want, recons):
+        for pl in range(3):
+            np.testing.assert_array_equal(g[pl], np.asarray(wnt[pl]))
+            hh, ww = g[pl].shape
+            np.testing.assert_array_equal(np.asarray(g[pl], np.int64),
+                                          r[pl][:hh, :ww])
+
+
 def test_decoder_refuses_deblocked_frame():
-    """A frame header with the loop filter on names the unported
-    module before any tile is read."""
-    seq = writer.write_sequence_header(64, 64)
-    hdr = writer.write_key_frame_header(64, 64, 96, lf_level=8,
-                                        lf_level_uv=4)
+    """The decoder used to refuse a frame header with the loop filter
+    on; now it parses the levels and decodes such a frame, and a header
+    that turns CDEF on is what it still refuses, before any tile is
+    read."""
+    eng, pend, recons = _port_encode(64, 64, 1, 0,
+                                     frames=[clean_frame(64, 64, 0)])
+    tu = eng._finalize(pend[0])[0]
+    (frame,) = decoder.decode_stream([tu])
+    obus = list(obu.parse_obus(tu))
+    hdr = headers.parse_frame_header(
+        obus[1].payload, headers.parse_sequence_header(obus[0].payload))
+    assert all(hdr.lf.level) and tuple(hdr.lf.level) == (pend[0][14],) * 4
+    np.testing.assert_array_equal(frame[0], recons[0][0][:64, :64])
+    seq = j_writer.write_sequence_header(64, 64, enable_cdef=True)
+    hdr = j_writer.write_key_frame_header(64, 64, 96, lf_level=8,
+                                          lf_level_uv=4,
+                                          cdef=(3, 2, 1, 2, 1))
     hdr.byte_align()
     tu = seq + obu.make_obu(obu.OBU_FRAME, hdr.tobytes())
-    with pytest.raises(NotImplementedError, match="loopfilter"):
+    with pytest.raises(NotImplementedError, match="CDEF"):
         decoder.decode_stream([tu])
 
 
@@ -107,6 +214,20 @@ def test_header_writers_match_jax_package(w, h, q, bd):
             a.byte_align()
             b.byte_align()
             assert a.tobytes() == b.tobytes()
+        # loop-filter levels and the GOLDEN reference slot
+        for lvl, lvl_uv in ((1, 0), (12, 12), (63, 40)):
+            lf = dict(lf_level=lvl, lf_level_uv=lvl_uv, tile_rows_log2=trl2)
+            a = writer.write_key_frame_header(w, h, q, **lf)
+            b = j_writer.write_key_frame_header(w, h, q, **lf)
+            gold = dict(lf, order_hint=9, ref_slots=(0, 0, 0, 1, 0, 0, 0))
+            c = writer.write_inter_frame_header(w, h, q, **gold)
+            d = j_writer.write_inter_frame_header(w, h, q, **gold)
+            plain = writer.write_inter_frame_header(w, h, q, order_hint=9,
+                                                    tile_rows_log2=trl2)
+            for x in (a, b, c, d, plain):
+                x.byte_align()
+            assert a.tobytes() == b.tobytes()
+            assert c.tobytes() == d.tobytes() != plain.tobytes()
         assert writer.tile_row_spans(h, trl2) == \
             j_writer.tile_row_spans(h, trl2)
     tiles = [b"\x01\x02", b"\x03", b"\x04\x05\x06"]
@@ -139,16 +260,24 @@ def test_tables_match_jax_package():
             np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize("w,h", [(64, 64), (96, 80)])
-def test_tile_writer_matches_jax_package(w, h, monkeypatch):
+@pytest.mark.parametrize("w,h,golden", [(64, 64, False), (96, 80, False),
+                                        (128, 128, True), (96, 80, True)])
+def test_tile_writer_matches_jax_package(w, h, golden, monkeypatch):
     """The port's native tile writer, header writer and OBU framing give
     the same frame bytes as the JAX package's modules on the same
-    device outputs (key + P)."""
-    eng, pend, _ = _port_encode(w, h, 2, 3 * w + h)
+    device outputs: key + P on grainy content, and the clean flash GOP
+    with GOLDEN modes in the tiles, the GOLDEN slot and filter levels in
+    the headers."""
+    if golden:
+        eng, pend, _ = _port_encode(w, h, 3, 0, frames=_flash_gop(w, h),
+                                    golden=True)
+        assert int(pend[2][11][14].sum()) > 0 and pend[2][14] > 0
+    else:
+        eng, pend, _ = _port_encode(w, h, 2, 3 * w + h)
     got = [eng._finalize(p) for p in pend]
     monkeypatch.setattr(spec_engine, "native", j_native)
     monkeypatch.setattr(spec_engine, "W", j_writer)
     monkeypatch.setattr(spec_engine, "obu_mod", j_obu)
     want = [eng._finalize(p) for p in pend]
     assert got == want
-    assert [k for _, k in got] == [True, False]
+    assert [k for _, k in got] == [True, False, False][:len(pend)]

@@ -113,25 +113,25 @@ def test_port_imports_no_jax():
 
 
 def test_port_encode_decode_loads_no_av1tpu():
-    """A 64x64 key + P encode on the CPU, decoded by the port's own spec
-    decoder, loads neither jax nor any module of av1tpu."""
+    """A clean 64x64 key + P encode on the CPU with golden on (two
+    references, loop filter on), decoded by the port's own spec decoder,
+    loads neither jax nor any module of av1tpu."""
     code = (
         "import sys\n"
         "import numpy as np\n"
         "from av1tpu_torch.config import TpuEncoderConfig\n"
         "from av1tpu_torch.spec_engine import SpecTorchEngine\n"
         "from av1tpu_torch.specav1 import decoder\n"
-        "from av1tpu_torch.utils import testsrc\n"
-        "eng = SpecTorchEngine(TpuEncoderConfig(chunk=1, golden=False, "
+        "from av1tpu_torch.utils.cleansrc import clean_frame\n"
+        "eng = SpecTorchEngine(TpuEncoderConfig(chunk=1, golden=True, "
         "cdef=False, lr=False), device='cpu')\n"
-        "rng = np.random.default_rng(0)\n"
-        "fr = [testsrc.testsrc2(64, 64, i) for i in range(2)]\n"
-        "fr = [testsrc.Frame(y=np.clip(f.y.astype(int) + "
-        "rng.integers(-6, 7, f.y.shape), 0, 255).astype(np.uint8), "
-        "u=f.u, v=f.v) for f in fr]\n"
+        "fr = [clean_frame(64, 64, i) for i in range(2)]\n"
         "out = list(eng.encode_stream(fr, 96))\n"
+        "assert eng._gop_deblock and eng._golden_dev is not None\n"
         "dec = decoder.decode_stream([p for p, _ in out])\n"
         "assert [k for _, k in out] == [True, False] and len(dec) == 2\n"
+        "for d, r in zip(dec[1], eng._ref):\n"
+        "    assert np.array_equal(d, r[:d.shape[0], :d.shape[1]])\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'av1tpu') or "
         "m.startswith(('jax.', 'av1tpu.')))\n"
         "assert not bad, bad\n"
@@ -173,25 +173,70 @@ def test_port_source_imports_no_av1tpu(path):
 
 
 def test_engine_rejects_unported_config():
+    """golden=True is accepted; what is still missing raises."""
     from av1tpu_torch.config import TpuEncoderConfig
     from av1tpu_torch.spec_engine import SpecTorchEngine
-    with pytest.raises(NotImplementedError, match="golden"):
-        SpecTorchEngine(TpuEncoderConfig(chunk=1, cdef=False, lr=False),
-                        device="cpu")
+    ok = dict(chunk=1, golden=True, cdef=False, lr=False)
+    eng = SpecTorchEngine(TpuEncoderConfig(**ok), device="cpu")
+    assert eng._golden
+    assert not SpecTorchEngine(TpuEncoderConfig(**{**ok, "golden": False}),
+                               device="cpu")._golden
+    for kw, what in ((dict(chunk=4), "chunk"), (dict(cdef=True), "CDEF"),
+                     (dict(lr=True), "restoration"),
+                     (dict(num_chips=2), "num_chips")):
+        with pytest.raises(NotImplementedError, match=what):
+            SpecTorchEngine(TpuEncoderConfig(**{**ok, **kw}), device="cpu")
+    # the defaults ask for all of it
     with pytest.raises(NotImplementedError, match="chunk"):
-        SpecTorchEngine(TpuEncoderConfig(golden=False, cdef=False,
-                                         lr=False), device="cpu")
+        SpecTorchEngine(TpuEncoderConfig(), device="cpu")
 
 
 def test_engine_refuses_deblocking_gop():
-    """A clean source turns the GOP's deblocking on, and the port
-    raises instead of encoding without the loop filter."""
+    """The engine used to refuse a GOP whose deblocking decision is on;
+    now a flat, clean source encodes with the loop filter (levels in the
+    frame header, a filtered reference), and the same source with CDEF
+    asked for is what it still refuses."""
     from av1tpu_torch.config import TpuEncoderConfig
-    from av1tpu_torch.spec_engine import SpecTorchEngine
-    eng = SpecTorchEngine(TpuEncoderConfig(chunk=1, golden=False,
-                                           cdef=False, lr=False),
-                          device="cpu")
+    from av1tpu_torch.spec_engine import SpecTorchEngine, lf_levels
+    from av1tpu_torch.specav1 import decoder, headers, obu
+    cfg = dict(chunk=1, golden=False, cdef=False, lr=False)
+    eng = SpecTorchEngine(TpuEncoderConfig(**cfg), device="cpu")
     flat = testsrc.testsrc2(64, 64, 0)
     flat.y[:] = 128
-    with pytest.raises(NotImplementedError, match="loopfilter"):
-        eng.encode_smoke_frame(flat)
+    tu = eng.encode_smoke_frame(flat)
+    assert eng._gop_deblock
+    obus = list(obu.parse_obus(tu))
+    seq = headers.parse_sequence_header(obus[0].payload)
+    hdr = headers.parse_frame_header(obus[1].payload, seq)
+    lvl = lf_levels(96, 8)[0]
+    assert lvl > 0 and tuple(hdr.lf.level) == (lvl,) * 4
+    (dec,) = decoder.decode_stream([tu])
+    for d, r in zip(dec, eng._ref):
+        np.testing.assert_array_equal(d, r[:d.shape[0], :d.shape[1]])
+    # 1080 % 32 == 24: a clean 1080p source never filters
+    assert 1080 % 32 == 24 and 720 % 32 == 16 and 2160 % 32 == 16
+    with pytest.raises(NotImplementedError, match="CDEF"):
+        SpecTorchEngine(TpuEncoderConfig(**{**cfg, "cdef": True}),
+                        device="cpu")
+
+
+@pytest.mark.parametrize("w,h,want", [(64, 64, True), (128, 80, True),
+                                      (96, 88, False), (88, 80, False)])
+def test_gop_deblock_decision_follows_geometry(w, h, want):
+    """Clean content filters when the coded height is a multiple of 32,
+    or 16 past one with a width that is a multiple of 16; 88 % 32 == 24
+    is the 1080p case and never filters.  Grain turns it off anywhere."""
+    from av1tpu_torch.config import TpuEncoderConfig
+    from av1tpu_torch.spec_engine import SpecTorchEngine, noise_floor
+    from av1tpu_torch.utils.cleansrc import clean_frame
+    eng = SpecTorchEngine(TpuEncoderConfig(chunk=1, golden=True, cdef=False,
+                                           lr=False), device="cpu")
+    f = clean_frame(w, h, 0)
+    assert noise_floor(f.y) <= 1.0
+    eng.encode_keyframe(f, 96)
+    assert eng._gop_deblock == want
+    rng = np.random.default_rng(0)
+    f.y[:] = np.clip(f.y.astype(np.int32) + rng.integers(-6, 7, f.y.shape),
+                     0, 255)
+    eng.encode_keyframe(f, 96)
+    assert not eng._gop_deblock

@@ -6,8 +6,12 @@ JAX engine passes at 128x128, so the engine test reuses its compiled
 program.  Tolerances: every block must agree (99% of 16 blocks), the
 streams are expected to be byte-identical, and the required bounds are
 bits per pixel within 1% and Y-PSNR within 0.05 dB; the port's stream
-must decode in the in-repo spec decoder to the port's own recon.
+must decode in the in-repo spec decoder to the port's own recon.  The
+deblocked keyframe reuses the same JAX result: the JAX loop filter is
+applied to it as the JAX keyframe encoder's own tail does.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +19,7 @@ import torch
 
 from av1tpu.config import TpuEncoderConfig
 from av1tpu.specav1 import decoder, jax_intra
+from av1tpu.specav1 import loopfilter as jlf
 from av1tpu.utils import testsrc
 from av1tpu_torch import config as port_config
 from av1tpu_torch.spec_engine import SpecTorchEngine
@@ -33,21 +38,31 @@ def grainy_frame(i, rng):
     return testsrc.Frame(y=y, u=f.u, v=f.v)
 
 
-def test_key_frame_matches_jax():
-    """Keyframe wavefront with split16: modes, angles, uv modes, splits,
-    16x16 sub-decisions, levels and recon, block by block."""
+@functools.lru_cache(maxsize=None)
+def _jax_key():
+    """(frame, the JAX keyframe encoder's 19 outputs, filters off)."""
     f = grainy_frame(0, np.random.default_rng(2))
     want = jax_intra._encode_frame(
         jnp.asarray(f.y), jnp.asarray(f.u), jnp.asarray(f.v), jnp.int32(96),
         nbr=4, nbc=4, bit_depth=8, th=H, tw=W, tile_row_starts=(),
         lf_y=jnp.int32(0), lf_uv=jnp.int32(0), deblock=False, qround=0.70,
         cdef=False, cdef_damping=jnp.int32(4), lr=False)
-    want = [np.asarray(a) for a in want]
+    return f, [np.asarray(a) for a in want]
+
+
+def _port_key(f, **kw):
     got = torch_intra.encode_frame(torch.from_numpy(f.y),
                                    torch.from_numpy(f.u),
                                    torch.from_numpy(f.v), 96, 4, 4, 8,
-                                   th=H, tw=W)
-    got = [t.numpy() for t in got]
+                                   th=H, tw=W, **kw)
+    return [t.numpy() for t in got]
+
+
+def test_key_frame_matches_jax():
+    """Keyframe wavefront with split16: modes, angles, uv modes, splits,
+    16x16 sub-decisions, levels and recon, block by block."""
+    f, want = _jax_key()
+    got = _port_key(f)
     assert len(got) == len(want) == 19
     ok = np.ones(16, bool)
     for a, b in zip(want[6:15], got[6:15]):     # decision grids
@@ -57,6 +72,26 @@ def test_key_frame_matches_jax():
         ok &= eq.reshape(-1)
     assert ok.mean() >= 0.99
     for i in (15, 16, 17, 18):                  # strip, cdefs, lr
+        np.testing.assert_array_equal(got[i], want[i])
+
+
+def test_key_frame_deblock_matches_jax():
+    """deblock=True filters only the returned recon: the JAX loop filter
+    on the JAX keyframe's unfiltered planes and split grid (what its
+    own tail computes) equals the port's filtered output, and every
+    decision and level stays what the unfiltered encode gave."""
+    f, want = _jax_key()
+    lfy, lfuv = 9, 7
+    filt = jlf.deblock_frame(*(jnp.asarray(want[i]) for i in range(3)),
+                             jnp.int32(lfy), jnp.int32(lfuv),
+                             jnp.int32(lfuv), 8, H, W,
+                             split=jnp.asarray(want[10]), strip=False)
+    got = _port_key(f, lf_y=lfy, lf_uv=lfuv, deblock=True)
+    for i in range(3):
+        np.testing.assert_array_equal(got[i], np.asarray(filt[i]))
+    assert (got[0] != want[0]).sum() > 50, "the filter did nothing"
+    assert want[10].any(), "no split block: the masked passes never ran"
+    for i in range(3, 19):
         np.testing.assert_array_equal(got[i], want[i])
 
 
