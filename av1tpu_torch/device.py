@@ -119,12 +119,12 @@ def kernels() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build_kernels())
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.av1_gather_windows.argtypes = [vp, ci, ci, ci, vp, vp, ci,
-                                               ci, vp, vp]
+            # four plane pointers, P, dtype, hp, wp, ri, oy, ox, B, W,
+            # out, stream
+            lib.av1_gather_windows.argtypes = [vp, vp, vp, vp, ci, ci, ci,
+                                               ci, vp, vp, vp, ci, ci, vp,
+                                               vp]
             lib.av1_gather_windows.restype = ci
-            lib.av1_gather_windows2.argtypes = [vp, vp, ci, ci, ci, vp, vp,
-                                                vp, ci, ci, vp, vp]
-            lib.av1_gather_windows2.restype = ci
             lib.av1_refine_ssd.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp]
             lib.av1_refine_ssd.restype = ci
             _lib = lib

@@ -6,7 +6,8 @@ and InterRound0/1 rounding, float32 forward DCT + deadzone quantization,
 skip RDO, the 32 -> 16 split RD, and the spec-exact integer
 reconstruction.  Every block depends only on the previous frame's
 reconstruction, so the frame runs as batched tensor ops over 32x32
-blocks; window reads go through K1 (``kernels.gather``).
+blocks; window reads go through K1 (``kernels.gather``), the chroma
+MC's U and V windows in one launch.
 
 With a GOLDEN reference (the GOP keyframe's reconstruction) every
 32x32 block picks LAST or GOLDEN by its full-pel SSDs; window reads of
@@ -66,16 +67,17 @@ def prep_ref(ref: torch.Tensor, t_h: int, t_w: int, pad: int):
 
 
 def _subpel_hv(win, fx, fy, size: int, r0: int, r1: int, bit_depth: int):
-    """Batched spec 8-tap h+v filtering of (B, size+7, size+7) int32
-    windows with per-block taps fx/fy (B, 8)."""
-    B = win.shape[0]
-    h = torch.zeros((B, size + 7, size), dtype=I32, device=win.device)
+    """Batched spec 8-tap h+v filtering of (..., B, size+7, size+7) int32
+    windows with per-block taps fx/fy (B, 8), shared by every leading
+    index (the planes of one gather)."""
+    lead = win.shape[:-2]
+    h = torch.zeros((*lead, size + 7, size), dtype=I32, device=win.device)
     for t in range(8):
-        h = h + fx[:, t, None, None] * win[:, :, t:t + size]
+        h = h + fx[:, t, None, None] * win[..., :, t:t + size]
     h = (h + (1 << (r0 - 1))) >> r0
-    v = torch.zeros((B, size, size), dtype=I32, device=win.device)
+    v = torch.zeros((*lead, size, size), dtype=I32, device=win.device)
     for t in range(8):
-        v = v + fy[:, t, None, None] * h[:, t:t + size, :]
+        v = v + fy[:, t, None, None] * h[..., t:t + size, :]
     v = (v + (1 << (r1 - 1))) >> r1
     return v.clamp(0, (1 << bit_depth) - 1)
 
@@ -84,26 +86,30 @@ def _taps(phase: int) -> list:
     return [int(t) for t in np.asarray(inter_recon.SUBPEL_REGULAR)[phase]]
 
 
-def _windows(ref_pad, gld_pad, ri, oy, ox, W: int):
-    """K1 windows of ref_pad, or per block of (ref_pad, gld_pad)[ri]."""
-    if gld_pad is None:
-        return gather.gather_windows(ref_pad, oy, ox, W)
-    return gather.gather_windows2(ref_pad, gld_pad, ri, oy, ox, W)
+def _windows(refs, glds, ri, oy, ox, W: int):
+    """K1 windows of refs (a plane, or a tuple of planes that go in one
+    launch), or per block of (refs, glds)[ri]."""
+    if glds is None:
+        return gather.gather_windows(refs, oy, ox, W)
+    return gather.gather_windows2(refs, glds, ri, oy, ox, W)
 
 
-def _mc_blocks(ref_pad, pos, mvs, size: int, ss: int, bit_depth: int,
-               gld_pad=None, ri=None):
-    """Spec motion compensation for B size x size blocks: ref_pad padded
-    by PAD >> ss, pos (B, 2) plane-space origins, mvs (B, 2) luma MVs in
-    1/8 pel.  With ``gld_pad`` (the reference's _mc_blocks2; the two
-    planes replace its make_wide2 handle) block b predicts from gld_pad
-    where ri[b] is 1, else from ref_pad.  Returns (B, size, size) int32
-    predictions."""
+def _mc_blocks(refs, pos, mvs, size: int, ss: int, bit_depth: int,
+               glds=None, ri=None):
+    """Spec motion compensation for B size x size blocks of each plane
+    in ``refs`` (a tuple: U and V, or one plane), every plane padded by
+    PAD >> ss and of one shape; pos (B, 2) plane-space origins, mvs
+    (B, 2) luma MVs in 1/8 pel.  The positions and filter phases are
+    computed once, all planes' windows come from one K1 launch, and one
+    8-tap pass filters them.  With ``glds`` (the GOLDEN planes in the
+    same order; the reference's _mc_blocks2, the planes replacing its
+    make_wide2 handle) block b predicts from them where ri[b] is 1.
+    Returns a tuple of (B, size, size) int32 predictions, one a plane."""
     pad = PAD >> ss
     r0, r1 = _rounds(bit_depth)
-    filt = _filt(ref_pad.device)
+    filt = _filt(refs[0].device)
     W7 = size + 7
-    Hp, Wp = ref_pad.shape
+    Hp, Wp = refs[0].shape
     mul = 2 >> ss
     sy16 = pos[:, 0] * 16 + mvs[:, 0] * mul
     sx16 = pos[:, 1] * 16 + mvs[:, 1] * mul
@@ -111,8 +117,9 @@ def _mc_blocks(ref_pad, pos, mvs, size: int, ss: int, bit_depth: int,
     fx = filt[(sx16 & 15).long()]
     iy = ((sy16 >> 4) - 3 + pad).clamp(0, Hp - W7)
     ix = ((sx16 >> 4) - 3 + pad).clamp(0, Wp - W7)
-    win = _windows(ref_pad, gld_pad, ri, iy, ix, W7)
-    return _subpel_hv(win, fx, fy, size, r0, r1, bit_depth)
+    win = _windows(tuple(refs), None if glds is None else tuple(glds), ri,
+                   iy, ix, W7)                          # (P, B, W7, W7)
+    return tuple(_subpel_hv(win, fx, fy, size, r0, r1, bit_depth))
 
 
 def _qpel_refine9(src_blocks, ref_pad, pos, mv8, size: int, bit_depth: int,
@@ -277,10 +284,10 @@ def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
         mv_fp = torch.where(use_g[:, None], 0, mv_fp)
     mv8, pred_y = _qpel_refine9(blocks, ref_pad_y, pos, mv_fp * 8, n,
                                 bit_depth, gld_pad_y, refsel)
-    pred_u = _mc_blocks(ref_pad_u, cpos, mv8, n // 2, 1, bit_depth,
-                        gld_pad_u, refsel)
-    pred_v = _mc_blocks(ref_pad_v, cpos, mv8, n // 2, 1, bit_depth,
-                        gld_pad_v, refsel)
+    ref_pad_uv = (ref_pad_u, ref_pad_v)
+    gld_pad_uv = None if gld is None else (gld_pad_u, gld_pad_v)
+    pred_u, pred_v = _mc_blocks(ref_pad_uv, cpos, mv8, n // 2, 1, bit_depth,
+                                gld_pad_uv, refsel)
 
     def plane_pipe(src, preds, nn, shift, nbh, nbw):
         fmat = fwd_mat("dct", nn, dev)
@@ -350,10 +357,8 @@ def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
     mv16_fp = torch.where(keep[:, None], mv16_r, 0).clamp(-_MAX_FP, _MAX_FP)
     mv16, pred16_y = _qpel_refine9(blocks16, ref_pad_y, pos16, mv16_fp * 8,
                                    16, bit_depth, gld_pad_y, ri16)
-    pred16_u = _mc_blocks(ref_pad_u, cpos16, mv16, 8, 1, bit_depth,
-                          gld_pad_u, ri16)
-    pred16_v = _mc_blocks(ref_pad_v, cpos16, mv16, 8, 1, bit_depth,
-                          gld_pad_v, ri16)
+    pred16_u, pred16_v = _mc_blocks(ref_pad_uv, cpos16, mv16, 8, 1,
+                                    bit_depth, gld_pad_uv, ri16)
     lv16_y, rec16_y = plane_pipe(y, pred16_y, 16, 0, g16h, g16w)
     lv16_u, rec16_u = plane_pipe(u, pred16_u, 8, 0, g16h, g16w)
     lv16_v, rec16_v = plane_pipe(v, pred16_v, 8, 0, g16h, g16w)

@@ -7,12 +7,14 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build    the CUDA kernels (one nvcc per source) and the port's native
               tile writer (g++), all started together, into
               av1tpu_torch/_build/
-  3. kernels  K1 gather (one plane and the two-plane LAST/GOLDEN entry) and
-              K2 refine against their plain PyTorch versions at the shapes
-              that the 1080p and the 720p paths give them, 8- and 10-bit,
-              exact equality, and K2's edge cases; kernel, plain and library
-              milliseconds from CUDA events at each, beside the bound and
-              the roofline share
+  3. kernels  K1 gather (one plane and the two-plane LAST/GOLDEN entry,
+              each also with U and V in one launch) and K2 refine against
+              their plain PyTorch versions at the shapes that the 1080p and
+              the 720p paths give them, 8- and 10-bit, exact equality, and
+              K2's edge cases; kernel, plain and library milliseconds from
+              CUDA events at each, beside the bound and the roofline share;
+              K1 at random origins and at path-like ones (the block grid
+              plus vectors within the refine radius)
   4. slices   through SpecTorchEngine(cfg, device="cuda").encode_stream at
               qindex 96, with the launch counts set to 0 before each:
               slice-1080p-grain   1 key + 3 P, seeded grainy 1920x1080,
@@ -24,7 +26,9 @@ Phases (any failure exits non-zero; nothing is caught):
               slice-720p-clean    1 key + 3 P, clean 1280x720: the GOP's
                                   deblocking decision is on (strip + loop
                                   filter + split), header levels nonzero
-              every kernel of a path must launch, and the port's spec
+              every kernel of a path must launch (K1: 3 one-plane + 5
+              two-plane launches per golden P-frame, 7 one-plane with
+              golden off), and the port's spec
               decoder must reproduce every plane of every frame of each
               stream; fps, bits per pixel, Y-PSNR, key/P ms, GOLDEN share
               per frame
@@ -123,6 +127,40 @@ def geometry(w: int, h: int):
     return ({"luma": (ph + 128, pw + 128),
              "chroma": (ph // 2 + 64, pw // 2 + 64)},
             (ph // 32) * (pw // 32))
+
+
+def path_origins(rng, hp, wp, W, n, B, pad):
+    """Block-grid origins: each window around its n x n block (as the
+    refine regions, qpel windows and MC taps sit) plus a vector within
+    the refine radius (+-8 luma, +-4 chroma), clamped into the plane."""
+    import numpy as np
+    rows, cols = (hp - 2 * pad) // n, (wp - 2 * pad) // n
+    if rows * cols != B:
+        fail(f"path origins: a {rows}x{cols} grid for B={B}")
+    r, c = np.mgrid[0:rows, 0:cols]
+    rad = 8 if pad == 64 else 4
+    v = rng.integers(-rad, rad + 1, (2, B))
+    oy = r.reshape(-1) * n + pad - (W - n) // 2 + v[0]
+    ox = c.reshape(-1) * n + pad - (W - n) // 2 + v[1]
+    return np.clip(oy, 0, hp - W), np.clip(ox, 0, wp - W)
+
+
+def touched_bytes(planes, ri, oy, ox, W) -> int:
+    """The bytes a K1 call needs: the plane elements some window covers
+    (per reference where a selector ri is given; planes then holds the
+    LAST planes, then the GOLDEN ones), each read once, the index
+    vectors and the output."""
+    import torch
+    P = len(planes) if ri is None else len(planes) // 2
+    hp, wp = planes[0].shape
+    ar = torch.arange(W, device=oy.device)
+    sel = torch.zeros_like(oy) if ri is None else ri.clamp(0, 1)
+    touched = torch.zeros((2, hp, wp), dtype=torch.bool, device=oy.device)
+    touched[sel.long()[:, None, None], (oy.long()[:, None] + ar)[:, :, None],
+            (ox.long()[:, None] + ar)[:, None, :]] = True
+    B = oy.shape[0]
+    return (P * int(touched.sum()) * planes[0].element_size()
+            + 4 * B * (2 if ri is None else 3) + 4 * P * B * W * W)
 
 
 def grainy_frame(w: int, h: int, i: int, rng):
@@ -273,84 +311,135 @@ def phase_kernels(dev):
                         f"{bms / ms:.3f}")
     sizes = " and ".join(SIZES)
     log(f"K1 equal to plain and to the library call at all shapes of "
-        f"{sizes}, 8/10-bit (max_abs_err {k1_err})")
+        f"{sizes}, 8/10-bit, one plane and U+V in one launch (max_abs_err "
+        f"{k1_err})")
     log(f"K1 two-plane equal to plain at all golden-path shapes of {sizes}, "
-        "int16 and int32 planes, selector LAST / GOLDEN / mixed "
-        f"(max_abs_err {g2_err})")
+        "int16 and int32 planes, selector LAST / GOLDEN / mixed / out of "
+        f"range, one plane and U+V in one launch (max_abs_err {g2_err})")
     log(f"K2 equal to plain at n=32/16 of {sizes}, 8/10-bit (max_abs_err "
         f"{k2_err})")
     phase_k2_edges(dev)
     return k1_err, k1_rows, k2_err, k2_rows, g2_err, g2_rows
 
 
+def _k1_path_origins(rng, pname, plane_shape, W, n, B, dev):
+    """Path-like origins (``path_origins``) as int32 tensors on the
+    card."""
+    import torch
+    hp, wp = plane_shape
+    oy, ox = path_origins(rng, hp, wp, W, n, B, 64 if pname == "luma"
+                          else 32)
+    return (torch.as_tensor(oy, dtype=torch.int32, device=dev),
+            torch.as_tensor(ox, dtype=torch.int32, device=dev))
+
+
+def _k1_row(label, fn, plain, library, bms_by, rows):
+    """Time one K1 call beside its plain version and library call."""
+    ms = cuda_ms(fn)
+    pms = cuda_ms(plain)
+    lms = cuda_ms(library)
+    bms, by = bms_by
+    rows.append({"shape": label, "ms": ms, "plain_ms": pms,
+                 "library_ms": lms, "bound_ms": bms, "bound_by": by,
+                 "share": bms / ms})
+    log(f"K1 {label}: kernel {ms:.4f} ms  plain {pms:.4f}  library "
+        f"{lms:.4f}  bound {bms:.4f} ({by})  share {bms / ms:.3f}")
+
+
+def _touched_bound(planes, ri, oy, ox, W):
+    """The bound over the bytes the data needs (``touched_bytes``)."""
+    return bound_ms(touched_bytes(planes, ri, oy, ox, W))
+
+
+# K1's main-path gathers of one P-frame: (plane, W, block side n on that
+# plane's grid, B as a multiple of the 32-grid's block count)
+K1_ONE = [("luma", 48, 32, 1), ("luma", 32, 32, 1), ("luma", 41, 32, 1),
+          ("luma", 32, 16, 4), ("luma", 25, 16, 4), ("chroma", 23, 16, 1),
+          ("chroma", 15, 8, 4)]
+K1_TWO = [("luma", 41, 32, 1), ("luma", 32, 16, 4), ("luma", 25, 16, 4),
+          ("chroma", 23, 16, 1), ("chroma", 15, 8, 4)]
+
+
 def phase_gather1(dev, rng, sname, planes, b32):
     """One-plane K1 vs plain and vs the library call at one frame size:
-    refine regions 48/32, qpel windows 41/25, chroma MC 23/15, and the
-    golden path's full-pel probe 32 at the 32-grid; 8- and 10-bit
-    content, every shape on both planes; timed where a path runs it."""
+    refine regions 48/32, qpel windows 41/25, chroma MC 23/15 (one plane,
+    and U+V in one launch as the path runs it), and the golden path's
+    full-pel probe 32 at the 32-grid; 8- and 10-bit content, every shape
+    on both planes, exact.  Timed at random origins (the earlier
+    rows, kept so that they compare) and at path-like origins, 8-bit."""
     import torch
 
     from av1tpu_torch.encoder.kernels import gather
-    shapes = [(48, b32), (32, 4 * b32), (41, b32), (25, 4 * b32), (23, b32),
-              (15, 4 * b32), (32, b32)]
     worst, rows = 0, []
     for bd in (8, 10):
         for pname, (hp, wp) in planes.items():
-            plane = torch.as_tensor(rng.integers(0, 1 << bd, (hp, wp)),
-                                    dtype=torch.int32, device=dev)
-            for W, B in shapes:
+            pu, pv = (torch.as_tensor(rng.integers(0, 1 << bd, (hp, wp)),
+                                      dtype=torch.int32, device=dev)
+                      for _ in range(2))
+            for kind, W, n, k in K1_ONE:
+                B = k * b32
                 oy = torch.as_tensor(rng.integers(0, hp - W + 1, B),
                                      dtype=torch.int32, device=dev)
                 ox = torch.as_tensor(rng.integers(0, wp - W + 1, B),
                                      dtype=torch.int32, device=dev)
-                got = gather.gather_windows(plane, oy, ox, W)
-                want = gather.gather_windows_plain(plane, oy, ox, W)
                 oy64, ox64 = oy.long(), ox.long()
-
-                def library():
-                    return plane.unfold(0, W, 1).unfold(1, W, 1)[oy64, ox64]
-
-                lib = library()
+                got = gather.gather_windows(pu, oy, ox, W)
+                want = gather.gather_windows_plain(pu, oy, ox, W)
+                lib = pu.unfold(0, W, 1).unfold(1, W, 1)[oy64, ox64]
+                got2 = gather.gather_windows((pu, pv), oy, ox, W)
+                want2 = gather.gather_windows_plain((pu, pv), oy, ox, W)
                 torch.cuda.synchronize()
-                err = int((got - want).abs().max())
+                err = max(int((got - want).abs().max()),
+                          int((got2 - want2).abs().max()))
                 worst = max(worst, err)
-                if err or not torch.equal(lib, want):
+                if err or not torch.equal(lib, want) or \
+                        not torch.equal(want2[0], want):
                     fail(f"K1 {sname} W={W} B={B} {pname} {bd}-bit differs "
                          f"({err})")
-                main = (pname == "luma" and W in (48, 32, 41, 25)) or \
-                    (pname == "chroma" and W in (23, 15))
-                if bd == 8 and main:
-                    ms = cuda_ms(lambda: gather.gather_windows(
-                        plane, oy, ox, W))
-                    pms = cuda_ms(lambda: gather.gather_windows_plain(
-                        plane, oy, ox, W))
-                    lms = cuda_ms(library)
-                    nbytes = (plane.numel() * plane.element_size() + 8 * B
-                              + 4 * B * W * W)
-                    bms, by = bound_ms(nbytes)
-                    rows.append({
-                        "shape": f"{sname} {pname} W={W} B={B}", "ms": ms,
-                        "plain_ms": pms, "library_ms": lms,
-                        "bound_ms": bms, "bound_by": by, "share": bms / ms})
-                    log(f"K1 gather {sname} {pname} W={W} B={B}: kernel "
-                        f"{ms:.4f} ms  plain {pms:.4f}  library {lms:.4f}  "
-                        f"bound {bms:.4f} ({by})  share {bms / ms:.3f}")
+                if bd != 8 or pname != kind:
+                    continue
+                label = f"{sname} {pname} W={W} B={B}"
+                _k1_row(label, lambda: gather.gather_windows(pu, oy, ox, W),
+                        lambda: gather.gather_windows_plain(pu, oy, ox, W),
+                        lambda: pu.unfold(0, W, 1).unfold(1, W, 1)[oy64,
+                                                                  ox64],
+                        _touched_bound((pu,), None, oy, ox, W), rows)
+                py, px = _k1_path_origins(rng, pname, (hp, wp), W, n, B, dev)
+                py64, px64 = py.long(), px.long()
+                uv = (pu, pv)
+                for tag, pl in (("", (pu,)), (" U+V", uv)):
+                    if tag and kind != "chroma":
+                        continue
+                    a = pl[0] if len(pl) == 1 else pl
+                    stk = torch.stack(pl)
+                    for otag, y, x, y64, x64 in (
+                            (" path", py, px, py64, px64),
+                            ("", oy, ox, oy64, ox64)):
+                        if not tag and not otag:
+                            continue         # the random-origin row, above
+                        _k1_row(
+                            label + tag + otag,
+                            lambda: gather.gather_windows(a, y, x, W),
+                            lambda: gather.gather_windows_plain(a, y, x, W),
+                            lambda: stk.unfold(1, W, 1).unfold(2, W, 1)[
+                                :, y64, x64],
+                            _touched_bound(pl, None, y, x, W), rows)
     return worst, rows
 
 
 def phase_gather2(dev, rng, sname, planes, b32):
-    """Two-plane K1 vs plain at the golden path's seven gathers of one
-    frame size (five distinct shapes; the chroma ones run for U and for
-    V): int16 and int32 planes, selector all LAST, all GOLDEN and mixed,
-    exact.  Timed on int32 planes with a mixed selector, as the path runs
-    it."""
+    """Two-plane K1 vs plain at the golden path's gathers of one frame
+    size (five shapes; the chroma ones one plane and U+V in one launch):
+    int16 and int32 planes, selector all LAST, all GOLDEN, mixed and out
+    of range, exact.  Timed on int32 planes with a mixed selector at
+    random origins (the earlier rows, kept so that they compare) and at
+    path-like origins."""
     import torch
 
     from av1tpu_torch.encoder.kernels import gather
-    shapes = [("luma", 41, b32), ("luma", 32, 4 * b32), ("luma", 25, 4 * b32),
-              ("chroma", 23, b32), ("chroma", 15, 4 * b32)]
     worst, rows = 0, []
-    for pname, W, B in shapes:
+    for pname, W, n, k in K1_TWO:
+        B = k * b32
         hp, wp = planes[pname]
         oy = torch.as_tensor(rng.integers(0, hp - W + 1, B),
                              dtype=torch.int32, device=dev)
@@ -359,52 +448,76 @@ def phase_gather2(dev, rng, sname, planes, b32):
         sels = {"LAST": torch.zeros(B, dtype=torch.int32, device=dev),
                 "GOLDEN": torch.ones(B, dtype=torch.int32, device=dev),
                 "mixed": torch.as_tensor(rng.integers(0, 2, B),
-                                         dtype=torch.int32, device=dev)}
+                                         dtype=torch.int32, device=dev),
+                "out of range": torch.as_tensor(rng.integers(-3, 5, B),
+                                                dtype=torch.int32,
+                                                device=dev)}
         for bd, dtype in ((8, torch.int32), (10, torch.int32),
                           (10, torch.int16)):
-            p0, p1 = (torch.as_tensor(rng.integers(0, 1 << bd, (hp, wp)),
-                                      dtype=dtype, device=dev)
-                      for _ in range(2))
+            lu, lv, gu, gv = (torch.as_tensor(
+                rng.integers(0, 1 << bd, (hp, wp)), dtype=dtype, device=dev)
+                for _ in range(4))
             for sel, ri in sels.items():
-                got = gather.gather_windows2(p0, p1, ri, oy, ox, W)
-                want = gather.gather_windows2_plain(p0, p1, ri, oy, ox, W)
+                got = gather.gather_windows2(lu, gu, ri, oy, ox, W)
+                want = gather.gather_windows2_plain(lu, gu, ri, oy, ox, W)
+                got2 = gather.gather_windows2((lu, lv), (gu, gv), ri, oy, ox,
+                                              W)
+                want2 = gather.gather_windows2_plain((lu, lv), (gu, gv), ri,
+                                                     oy, ox, W)
                 torch.cuda.synchronize()
-                err = int((got - want).abs().max())
+                err = max(int((got - want).abs().max()),
+                          int((got2 - want2).abs().max()))
                 worst = max(worst, err)
-                if err:
+                if err or not torch.equal(want2[0], want):
                     fail(f"K1 two-plane {sname} W={W} B={B} {pname} "
                          f"{bd}-bit {dtype} {sel} differs ({err})")
             if bd != 8:
                 continue
             ri = sels["mixed"]
             ri64, oy64, ox64 = ri.long(), oy.long(), ox.long()
-
-            def library():
-                return torch.stack([p0, p1]).unfold(1, W, 1) \
-                    .unfold(2, W, 1)[ri64, oy64, ox64]
-
-            if not torch.equal(library(), want):
+            stk = torch.stack([lu, gu])
+            if not torch.equal(stk.unfold(1, W, 1).unfold(2, W, 1)[
+                    ri64, oy64, ox64], gather.gather_windows2_plain(
+                        lu, gu, ri, oy, ox, W)):
                 fail(f"two-plane library call differs at W={W} B={B}")
-            ms = cuda_ms(lambda: gather.gather_windows2(p0, p1, ri, oy, ox,
-                                                        W))
-            pms = cuda_ms(lambda: gather.gather_windows2_plain(
-                p0, p1, ri, oy, ox, W))
-            lms = cuda_ms(library)
+            label = f"{sname} {pname} W={W} B={B}"
             # bytes the data needs: the plane elements some window
             # covers (each once), the three index vectors, the output
-            ar = torch.arange(W, device=dev)
-            touched = torch.zeros((2, hp, wp), dtype=torch.bool, device=dev)
-            touched[ri64[:, None, None], (oy64[:, None] + ar)[:, :, None],
-                    (ox64[:, None] + ar)[:, None, :]] = True
-            nbytes = (int(touched.sum()) * p0.element_size() + 12 * B
-                      + 4 * B * W * W)
-            bms, by = bound_ms(nbytes)
-            rows.append({"shape": f"{sname} {pname} W={W} B={B}", "ms": ms,
-                         "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
-                         "bound_by": by, "share": bms / ms})
-            log(f"K1 two-plane {sname} {pname} W={W} B={B}: kernel "
-                f"{ms:.4f} ms  plain {pms:.4f}  library {lms:.4f}  bound "
-                f"{bms:.4f} ({by})  share {bms / ms:.3f}")
+            _k1_row(label,
+                    lambda: gather.gather_windows2(lu, gu, ri, oy, ox, W),
+                    lambda: gather.gather_windows2_plain(lu, gu, ri, oy, ox,
+                                                         W),
+                    lambda: stk.unfold(1, W, 1).unfold(2, W, 1)[ri64, oy64,
+                                                                ox64],
+                    _touched_bound((lu, gu), ri, oy, ox, W), rows)
+            py, px = _k1_path_origins(rng, pname, (hp, wp), W, n, B, dev)
+            py64, px64 = py.long(), px.long()
+            stk2 = torch.stack([torch.stack([lu, lv]),
+                                torch.stack([gu, gv])], 1)   # (2, 2, h, w)
+            for tag, last, gold in (("", lu, gu), (" U+V", (lu, lv),
+                                                  (gu, gv))):
+                if tag and pname != "chroma":
+                    continue
+                s_ = stk if not tag else stk2
+                for otag, y, x, y64, x64 in ((" path", py, px, py64, px64),
+                                             ("", oy, ox, oy64, ox64)):
+                    if not tag and not otag:
+                        continue             # the random-origin row, above
+                    if tag:
+                        def library(y64=y64, x64=x64):
+                            return s_.unfold(2, W, 1).unfold(3, W, 1)[
+                                :, ri64, y64, x64]
+                    else:
+                        def library(y64=y64, x64=x64):
+                            return s_.unfold(1, W, 1).unfold(2, W, 1)[
+                                ri64, y64, x64]
+                    pl = (lu, gu) if not tag else (lu, lv, gu, gv)
+                    _k1_row(label + tag + otag,
+                            lambda: gather.gather_windows2(last, gold, ri, y,
+                                                           x, W),
+                            lambda: gather.gather_windows2_plain(
+                                last, gold, ri, y, x, W),
+                            library, _touched_bound(pl, ri, y, x, W), rows)
     return worst, rows
 
 
@@ -535,6 +648,16 @@ def need_launches(name: str, launches: dict, kernels) -> None:
         fail(f"{name}: the path did not launch {idle}: {launches}")
 
 
+def need_k1_launches(name: str, launches: dict, n_p: int, one: int,
+                     two: int) -> None:
+    """K1's launches per P-frame: U and V go in one launch, so a golden
+    P-frame takes 3 one-plane + 5 two-plane, one with golden off 7."""
+    got = (launches["gather_windows"], launches["gather_windows2"])
+    if got != (one * n_p, two * n_p):
+        fail(f"{name}: K1 launches {got} over {n_p} P-frames, expected "
+             f"{one} one-plane + {two} two-plane a frame")
+
+
 def phase_slices(dev_name: str):
     """The three full-size paths; returns each path's launch counts and
     its run (engine and last frame included)."""
@@ -558,8 +681,7 @@ def phase_slices(dev_name: str):
              f"{r['eng']._gop_deblock}")
     need_launches("slice-1080p-grain", r["launches"],
                   ("gather_windows", "refine_ssd"))
-    if r["launches"]["gather_windows2"]:
-        fail("slice-1080p-grain launched the two-plane gather")
+    need_k1_launches("slice-1080p-grain", r["launches"], 3, 7, 0)
     decode_check("slice-1080p-grain", r)
     counts["slice-1080p-grain"] = r["launches"]
 
@@ -586,6 +708,7 @@ def phase_slices(dev_name: str):
              f"{sh[5]} of its blocks")
     need_launches("slice-1080p-golden", r["launches"],
                   ("gather_windows", "gather_windows2", "refine_ssd"))
+    need_k1_launches("slice-1080p-golden", r["launches"], 7, 3, 5)
     decode_check("slice-1080p-golden", r)
     counts["slice-1080p-golden"] = r["launches"]
     runs["slice-1080p-golden"] = r
@@ -612,6 +735,7 @@ def phase_slices(dev_name: str):
     log(f"slice-720p-clean: deblocking on, frame-header levels {levels}")
     need_launches("slice-720p-clean", r["launches"],
                   ("gather_windows", "gather_windows2", "refine_ssd"))
+    need_k1_launches("slice-720p-clean", r["launches"], 3, 3, 5)
     decode_check("slice-720p-clean", r)
     counts["slice-720p-clean"] = r["launches"]
     runs["slice-720p-clean"] = r

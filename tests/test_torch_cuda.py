@@ -115,6 +115,98 @@ def test_gather2_wrapper_rejects_bad_inputs(cuda):
     assert gather.gather_windows2.launches == n0
 
 
+# the widths with a compile-time instance, and two the kernel takes at
+# run time
+K1_WIDTHS = (15, 23, 25, 32, 41, 48, 9, 2)
+
+
+def _k1_case(rng, dev, W, B, hp=200, wp=328):
+    """Origins that reach past every edge (the kernel clamps them) and a
+    selector with values outside {0, 1}."""
+    oy, ox = (torch.as_tensor(rng.integers(-20, n - W + 21, B),
+                              dtype=torch.int32, device=dev)
+              for n in (hp, wp))
+    ri = torch.as_tensor(rng.integers(-2, 4, B), dtype=torch.int32,
+                         device=dev)
+    return oy, ox, ri
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("W", K1_WIDTHS)
+def test_k1_entries_match_plain(cuda, W, dtype, P):
+    """Both entries with one plane and with U+V in one launch, at block
+    counts the group does not divide (B = 1 included), origins out of
+    range, and selectors all LAST, all GOLDEN, mixed and out of range."""
+    rng = np.random.default_rng(W * 7 + P)
+    hp, wp = 200, 328
+    last = [torch.as_tensor(rng.integers(-3000, 3000, (hp, wp)), dtype=dtype,
+                            device=cuda) for _ in range(P)]
+    gold = [torch.as_tensor(rng.integers(-3000, 3000, (hp, wp)), dtype=dtype,
+                            device=cuda) for _ in range(P)]
+    one = P == 1
+    a, g = (last[0], gold[0]) if one else (tuple(last), tuple(gold))
+    for B in (1, 3, 5, 37, 1001):
+        oy, ox, ri = _k1_case(rng, cuda, W, B, hp, wp)
+        n0 = gather.gather_windows.launches
+        got = gather.gather_windows(a, oy, ox, W)
+        assert gather.gather_windows.launches == n0 + 1
+        want = gather.gather_windows_plain(a, oy, ox, W)
+        assert got.shape == ((B, W, W) if one else (P, B, W, W))
+        assert torch.equal(got, want)
+        for sel in (ri.clamp(0, 0), ri.clamp(1, 1), ri.clamp(0, 1), ri):
+            n0 = gather.gather_windows2.launches
+            got = gather.gather_windows2(a, g, sel, oy, ox, W)
+            assert gather.gather_windows2.launches == n0 + 1
+            assert torch.equal(got, gather.gather_windows2_plain(
+                a, g, sel, oy, ox, W))
+        # a U+V launch equals one launch a plane
+        if not one:
+            for j in range(P):
+                assert torch.equal(got[j], gather.gather_windows2(
+                    last[j], gold[j], ri, oy, ox, W))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [15, 9])
+def test_k1_grid_strides_over_groups(cuda, W):
+    """More groups of windows than the grid has CTAs (about 1,100 on an
+    H100): each CTA takes several groups in turn, the last one ragged."""
+    rng = np.random.default_rng(W)
+    planes = [torch.as_tensor(rng.integers(0, 1024, (200, 328)),
+                              dtype=torch.int32, device=cuda)
+              for _ in range(4)]
+    oy, ox, ri = _k1_case(rng, cuda, W, 150_001)
+    last, gold = tuple(planes[:2]), tuple(planes[2:])
+    assert torch.equal(gather.gather_windows2(last, gold, ri, oy, ox, W),
+                       gather.gather_windows2_plain(last, gold, ri, oy, ox,
+                                                    W))
+    assert torch.equal(gather.gather_windows(last, oy, ox, W),
+                       gather.gather_windows_plain(last, oy, ox, W))
+
+
+@pytest.mark.cuda
+def test_k1_uv_wrappers_reject_bad_inputs(cuda):
+    p = torch.zeros((64, 64), dtype=torch.int32, device=cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    n0 = (gather.gather_windows.launches, gather.gather_windows2.launches)
+    with pytest.raises(ValueError):      # three output planes
+        gather.gather_windows((p, p, p), idx, idx, 8)
+    with pytest.raises(ValueError):      # U and V of two shapes
+        gather.gather_windows((p, p[:32]), idx, idx, 8)
+    with pytest.raises(TypeError):       # U and V of two dtypes
+        gather.gather_windows((p, p.to(torch.int16)), idx, idx, 8)
+    with pytest.raises(ValueError):      # two LAST planes, one GOLDEN
+        gather.gather_windows2((p, p), (p,), idx, idx, idx, 8)
+    with pytest.raises(ValueError):      # GOLDEN V on another device
+        gather.gather_windows2((p, p), (p, p.cpu()), idx, idx, idx, 8)
+    with pytest.raises(ValueError):      # W = 0
+        gather.gather_windows((p, p), idx, idx, 0)
+    assert (gather.gather_windows.launches,
+            gather.gather_windows2.launches) == n0
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_bad_inputs(cuda):
     """Inputs the kernels would read out of bounds raise before launch."""

@@ -161,11 +161,11 @@ def test_mc_blocks2_matches_jax(size, ss, bd):
     ri = rng.integers(0, 2, B).astype(np.int32)
     refs3 = pallas_gather.make_wide2(*_j(r0, r1)) + (r0.shape[1],)
     want = jax_inter._mc_blocks2(refs3, *_j(pos, mvs, ri), size, ss, bd)
-    got = torch_inter._mc_blocks(_t(r0), _t(pos), _t(mvs), size, ss, bd,
-                                 _t(r1), _t(ri))
+    got, = torch_inter._mc_blocks((_t(r0),), _t(pos), _t(mvs), size, ss,
+                                  bd, (_t(r1),), _t(ri))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # a block on plane 0 equals the one-plane MC of plane 0
-    one = torch_inter._mc_blocks(_t(r0), _t(pos), _t(mvs), size, ss, bd)
+    one, = torch_inter._mc_blocks((_t(r0),), _t(pos), _t(mvs), size, ss, bd)
     sel = ri == 0
     assert sel.any() and torch.equal(got[_t(sel)], one[_t(sel)])
 

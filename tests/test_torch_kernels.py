@@ -123,8 +123,8 @@ def test_mc_blocks_matches_jax(size, ss, bd):
     want = np.asarray(jax_inter._mc_blocks(
         jnp.asarray(ref_pad), jnp.asarray(pos), jnp.asarray(mvs), size, ss,
         bd))
-    got = torch_inter._mc_blocks(_t(ref_pad), _t(pos), _t(mvs), size, ss,
-                                 bd)
+    got, = torch_inter._mc_blocks((_t(ref_pad),), _t(pos), _t(mvs), size,
+                                  ss, bd)
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -146,6 +146,7 @@ def test_port_encode_decode_loads_no_av1tpu():
 def _port_sources():
     root = os.path.join(REPO, "av1tpu_torch")
     out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "k1bench.py"),
            os.path.join(REPO, "tests", "test_torch_cuda.py")]
     for d, _, names in os.walk(root):
         out += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -155,8 +156,8 @@ def _port_sources():
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_port_source_imports_no_av1tpu(path):
-    """No file of the port, nor chip_smoke.py, nor the card-only tests,
-    imports jax or av1tpu (statically, at any depth)."""
+    """No file of the port, nor chip_smoke.py or k1bench.py, nor the
+    card-only tests, imports jax or av1tpu (statically, at any depth)."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):
