@@ -1,5 +1,5 @@
-// Copied from av1tpu/encoder/entropy/native/spec_tile.cc (without the loop-
-// restoration unit syntax and the CDF read-back, which the port does not use).
+// Copied from av1tpu/encoder/entropy/native/spec_tile.cc (without the CDF
+// read-back, which the port does not use).
 // Spec-AV1 tile writer: the sequential entropy hot loop, in C++.
 //
 // Port of av1tpu/specav1/writer.py (TileWriter) for the fixed-32x32
@@ -245,6 +245,13 @@ struct SpecTileWriter {
   // and the FRAME's total mi rows (spec MV clamping is frame-relative
   // while availability/contexts are tile-local)
   int row0 = 0, frame_mi_rows = 0;
+  // loop-restoration per-RU syntax (luma WIENER only; spec 5.11.57):
+  // choice[ur*ucols+uc] = -1 off, else index into taps (ntaps x 3);
+  // subexp refs reset per tile (fresh writer per tile)
+  int lr_size = 0, lr_urows = 0, lr_ucols = 0, lr_ntaps = 0;
+  std::vector<int32_t> lr_choice;
+  std::vector<int32_t> lr_taps;
+  int lr_ref[2][3] = {{3, -7, 15}, {3, -7, 15}};
   // scans (+ inverse: raster position -> scan index, for the linear
   // eob sweep — ~900 random gathers per 32x32 txb replaced by one
   // sequential pass)
@@ -335,6 +342,98 @@ int split_bool_f(const uint16_t *cdf, int nsyms, bool vertical) {
   for (int k = 0; k < 6; ++k)
     if (m[k] < nsyms) psplit += probs[m[k]];
   return psplit < 1 ? 1 : (psplit > 32767 ? 32767 : psplit);
+}
+
+// --- loop restoration per-RU syntax (spec 5.11.57/5.11.58) -----------
+// Writer duals of decode_signed_subexp_with_ref_bool; literal
+// (equiprobable) bits through the range coder.
+
+static void lr_write_quniform(SpecTileWriter *w, int n, int v) {
+  if (n <= 1) return;
+  int l = 0;  // bit_length(n): smallest l with n < (1 << l)
+  for (int t = n; t; t >>= 1) ++l;
+  int m = (1 << l) - n;
+  if (v < m) {
+    ec_enc_literal(w->enc, v, l - 1);
+  } else {
+    int t = v + m;
+    ec_enc_literal(w->enc, t >> 1, l - 1);
+    ec_enc_literal(w->enc, t & 1, 1);
+  }
+}
+
+static void lr_write_subexp_fin(SpecTileWriter *w, int n, int k, int v) {
+  int i = 0, mk = 0;
+  for (;;) {
+    int b2 = i ? k + i - 1 : k;
+    int a = 1 << b2;
+    if (n <= mk + 3 * a) {
+      lr_write_quniform(w, n - mk, v - mk);
+      return;
+    }
+    if (v >= mk + a) {
+      ec_enc_literal(w->enc, 1, 1);
+      ++i;
+      mk += a;
+    } else {
+      ec_enc_literal(w->enc, 0, 1);
+      ec_enc_literal(w->enc, v - mk, b2);
+      return;
+    }
+  }
+}
+
+static int lr_recenter_nonneg(int r, int v) {
+  if (v > (r << 1)) return v;
+  if (v >= r) return (v - r) << 1;
+  return ((r - v) << 1) - 1;
+}
+
+static void lr_write_signed_subexp(SpecTileWriter *w, int low, int high,
+                                   int k, int ref, int v) {
+  int n = high - low;
+  int r = ref - low;
+  int x = v - low;
+  int rec = ((r << 1) <= n) ? lr_recenter_nonneg(r, x)
+                            : lr_recenter_nonneg(n - 1 - r, n - 1 - x);
+  lr_write_subexp_fin(w, n, k, rec);
+}
+
+static const int kWienerTapsMin[3] = {-5, -23, -17};
+static const int kWienerTapsMax[3] = {10, 8, 46};
+static const int kWienerTapsK[3] = {1, 2, 3};
+
+// Emit the LR units whose top-left rounds into this SB (luma plane
+// only; frame-relative rows via w->row0).
+static void write_lr(SpecTileWriter *w, int r_local, int c) {
+  if (!w->lr_size) return;
+  int r = w->row0 + r_local;
+  int size = w->lr_size;
+  int urs = (r * 4 + size - 1) / size;
+  int ure = ((r + 16) * 4 + size - 1) / size;
+  if (ure > w->lr_urows) ure = w->lr_urows;
+  int ucs = (c * 4 + size - 1) / size;
+  int uce = ((c + 16) * 4 + size - 1) / size;
+  if (uce > w->lr_ucols) uce = w->lr_ucols;
+  for (int ur = urs; ur < ure; ++ur) {
+    for (int uc = ucs; uc < uce; ++uc) {
+      int32_t ch = w->lr_choice[ur * w->lr_ucols + uc];
+      uint16_t *cdf = w->tbl(TBL_RESTORE_WIENER, 0);
+      sym(w, ch >= 0 ? 1 : 0, cdf, 2);
+      if (ch < 0) continue;
+      // 6-wide rows: (v0, v1, v2, h0, h1, h2); pass 0 = vertical
+      const int32_t *taps = &w->lr_taps[ch * 6];
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int j = 0; j < 3; ++j) {
+          int32_t t = taps[pass * 3 + j];
+          lr_write_signed_subexp(w, kWienerTapsMin[j],
+                                 kWienerTapsMax[j] + 1, kWienerTapsK[j],
+                                 w->lr_ref[pass][j], t);
+          w->lr_ref[pass][j] = t;
+        }
+      }
+    }
+  }
 }
 
 void write_partition(SpecTileWriter *w, int r, int c, int bsize, int part) {
@@ -1211,6 +1310,16 @@ SpecTileWriter *stw_create(int mi_cols, int mi_rows, int base_q_idx) {
 }
 
 // Place this writer as one tile row of a taller frame.
+void stw_set_lr(SpecTileWriter *w, int unit_size, int urows, int ucols,
+                const int32_t *choice, const int32_t *taps, int ntaps) {
+  w->lr_size = unit_size;
+  w->lr_urows = urows;
+  w->lr_ucols = ucols;
+  w->lr_ntaps = ntaps;
+  w->lr_choice.assign(choice, choice + (size_t)urows * ucols);
+  w->lr_taps.assign(taps, taps + (size_t)ntaps * 6);
+}
+
 void stw_set_tile_row(SpecTileWriter *w, int row0_mi, int frame_mi_rows) {
   w->row0 = row0_mi;
   w->frame_mi_rows = frame_mi_rows;
@@ -1256,6 +1365,7 @@ int64_t stw_encode_intra32(SpecTileWriter *w, const int32_t *y_modes,
   for (int sb_r = 0; sb_r < w->mi_rows; sb_r += 16) {
     start_sb_row(w, sb_r);
     for (int sb_c = 0; sb_c < w->mi_cols; sb_c += 16) {
+      write_lr(w, sb_r, sb_c);
       write_partition(w, sb_r, sb_c, BLOCK_64X64, PARTITION_SPLIT);
       // z-order children
       const int child[4][2] = {{sb_r, sb_c},
@@ -1395,6 +1505,7 @@ int64_t stw_encode_inter32(SpecTileWriter *w, const int32_t *modes,
   for (int sb_r = 0; sb_r < w->mi_rows; sb_r += 16) {
     start_sb_row(w, sb_r);
     for (int sb_c = 0; sb_c < w->mi_cols; sb_c += 16) {
+      write_lr(w, sb_r, sb_c);
       write_partition(w, sb_r, sb_c, BLOCK_64X64, PARTITION_SPLIT);
       const int child[4][2] = {{sb_r, sb_c},
                                {sb_r, sb_c + 8},

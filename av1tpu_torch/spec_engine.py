@@ -7,14 +7,18 @@ port's own native C++ tile writer plus header/OBU writer on the host.  The
 output is standard AV1 in the same low-overhead framing as the JAX
 engine (keyframes carry [sequence header OBU][frame OBU]).
 
-Supported configuration: ``chunk=1``, ``cdef=False``, ``lr=False``, one
-device, 8- or 10-bit, ``golden`` on or off.  With ``golden`` the GOP
-keyframe's filtered reconstruction stays in reference slot 1 and every
-P-frame block picks LAST or GOLDEN.  Deblocking is decided per GOP
-exactly as the JAX engine does: on for a clean source (noise floor <= 1)
-whose coded height is a multiple of 32, or 16 past one with a width that
-is a multiple of 16 (every 720p and 2160p file; never 1080p, where
-1080 % 32 == 24), at a level derived from each frame's qindex.
+Supported configuration: the daemon's default except chunking and
+multiple devices: ``chunk=1``, one device, 8- or 10-bit, ``golden``,
+``cdef`` and ``lr`` each on or off.  With ``golden`` the GOP keyframe's
+filtered reconstruction stays in reference slot 1 and every P-frame
+block picks LAST or GOLDEN.  Deblocking is decided per GOP exactly as
+the JAX engine does: on for a clean source (noise floor <= 1) whose
+coded height is a multiple of 32, or 16 past one with a width that is a
+multiple of 16 (every 720p and 2160p file; never 1080p, where
+1080 % 32 == 24), at a level derived from each frame's qindex.  With
+``cdef`` every frame carries its searched CDEF strengths (damping from
+the qindex), and with ``lr`` the luma plane's per-unit Wiener choices
+and taps (frame restoration types (WIENER, NONE, NONE), 256-px units).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from av1tpu_torch.engine import TorchEngine
 from av1tpu_torch.specav1 import lr as _NL
 from av1tpu_torch.specav1 import native
 from av1tpu_torch.specav1 import obu as obu_mod
-from av1tpu_torch.specav1 import recon, torch_inter, torch_intra
+from av1tpu_torch.specav1 import recon, torch_inter, torch_intra, torch_lr
 from av1tpu_torch.specav1 import writer as W
 
 I32 = torch.int32
@@ -56,18 +60,20 @@ def _axis_true_dims_ok(px: int, is_height: bool = False) -> bool:
 
 
 class SpecSequenceHeader:
-    """Sequence parameters for the spec bitstream (av1C + seq OBU).
-    CDEF and loop restoration stay disabled: the port codes neither."""
+    """Sequence parameters for the spec bitstream (av1C + seq OBU)."""
 
     def __init__(self, width: int, height: int, bit_depth: int = 8,
                  color_primaries: int = 0, color_transfer: int = 0,
-                 color_matrix: int = 0):
+                 color_matrix: int = 0, enable_cdef: bool = False,
+                 enable_restoration: bool = False):
         self.width = width
         self.height = height
         self.bit_depth = bit_depth
         self.color_primaries = color_primaries
         self.color_transfer = color_transfer
         self.color_matrix = color_matrix
+        self.enable_cdef = enable_cdef
+        self.enable_restoration = enable_restoration
 
     def seq_obu(self) -> bytes:
         cp = self.color_primaries or None
@@ -78,7 +84,9 @@ class SpecSequenceHeader:
             w, h, bit_depth=self.bit_depth,
             color_primaries=cp,
             transfer=self.color_transfer if cp else None,
-            matrix=self.color_matrix if cp else None)
+            matrix=self.color_matrix if cp else None,
+            enable_cdef=self.enable_cdef,
+            enable_restoration=self.enable_restoration)
 
     def av1c(self) -> bytes:
         hbd = 1 if self.bit_depth > 8 else 0
@@ -109,10 +117,37 @@ def lf_levels(qindex: int, bit_depth: int = 8) -> tuple:
     return lvl, lvl
 
 
+def cdef_damping(qindex: int) -> int:
+    """CDEF damping from qindex (libaom's pick_cdef heuristic:
+    3 + (base_q_idx >> 6), range 3..6)."""
+    return min(6, 3 + (int(qindex) >> 6))
+
+
 def _lr_nru(th: int, tw: int) -> tuple:
     """(unit_rows, unit_cols) of the luma 256px restoration-unit grid."""
     return (_NL.count_units_in_frame(256, th),
             _NL.count_units_in_frame(256, tw))
+
+
+def _lr_taps():
+    """Tied (v == h) 6-tap rows for the static presets."""
+    p = np.asarray(torch_lr.PRESETS, np.int32)
+    return np.concatenate([p, p], axis=1)
+
+
+def _lr_table(choice_grid, taps6):
+    """(choice_grid', taps_table) for the tile writer: preset rows
+    0..P-1 (tied), then one solved (v0,v1,v2,h0,h1,h2) row per RU;
+    device choice P (= solved) maps to row P + ru_index."""
+    P = len(torch_lr.PRESETS)
+    nru = taps6.shape[0]
+    tab = np.concatenate([_lr_taps(), np.asarray(taps6, np.int32)],
+                         axis=0)
+    idx = np.where(choice_grid == P,
+                   P + np.arange(nru, dtype=np.int32).reshape(
+                       choice_grid.shape),
+                   choice_grid)
+    return idx.astype(np.int32), tab
 
 
 def _tile_plan(th: int):
@@ -201,10 +236,6 @@ class SpecTorchEngine(TorchEngine):
         missing = []
         if c.chunk > 1:
             missing.append("chunked dispatch (chunk > 1)")
-        if c.cdef:
-            missing.append("CDEF (cdef=True)")
-        if c.lr:
-            missing.append("loop restoration (lr=True)")
         if c.num_chips > 1:
             missing.append("multi-device stripes (num_chips > 1)")
         if c.bitstream != "spec":
@@ -215,6 +246,8 @@ class SpecTorchEngine(TorchEngine):
         self._order_hint = 0
         self._gop_deblock = False
         self._qround = float(c.qround)
+        self._cdef = bool(c.cdef)
+        self._lr = bool(c.lr)
         # per-block LAST/GOLDEN selection: slot 1 holds the GOP keyframe
         self._golden = bool(c.golden)
 
@@ -259,40 +292,41 @@ class SpecTorchEngine(TorchEngine):
                                       or (th % 32 == 16
                                           and tw % 16 == 0)))
         lfy, lfuv = lf_levels(qindex, bd) if self._gop_deblock else (0, 0)
+        damp = cdef_damping(qindex) if self._cdef else None
+        filters = dict(lf_y=lfy, lf_uv=lfuv, deblock=self._gop_deblock,
+                       cdef=self._cdef, cdef_damping=damp or 4, lr=self._lr)
         if is_key:
             _, _, brs = _tile_plan(th)
             out = torch_intra.encode_frame(
                 yj, uj, vj, qindex, nbr=ph // 32, nbc=pw // 32,
                 bit_depth=bd, th=th, tw=tw, tile_row_starts=brs,
-                qround=self._qround, lf_y=lfy, lf_uv=lfuv,
-                deblock=self._gop_deblock)
+                qround=self._qround, **filters)
             # the filtered recon is both LAST and the GOP's GOLDEN
             self._ref_dev = out[0:3]
             self._golden_dev = out[0:3]
             grids = torch.cat([out[i].reshape(-1) for i in range(6, 19)])
             pk = pack_outputs(out[3], out[4], out[5], grids, cap)
             return ("key", qindex, w, h, th, tw, ph, pw, bd, oh, refresh,
-                    out, pk, cap, lfy, lfuv, self._golden)
+                    out, pk, cap, lfy, lfuv, damp, self._lr, self._golden)
         refs = self._ref_dev
         out = torch_inter.encode_frame(
             yj, uj, vj, refs[0], refs[1], refs[2], qindex, bd, th=th, tw=tw,
             qround=self._qround,
-            gld=self._golden_dev if self._golden else None, lf_y=lfy,
-            lf_uv=lfuv, deblock=self._gop_deblock)
+            gld=self._golden_dev if self._golden else None, **filters)
         if refresh:
             self._ref_dev = out[5:8]
         grids = torch.cat([out[i].reshape(-1)
                            for i in (0, 1, 8, 9, 10, 11, 12, 13, 14, 15)])
         pk = pack_outputs(out[2], out[3], out[4], grids, cap)
         return ("inter", qindex, w, h, th, tw, ph, pw, bd, oh, refresh,
-                out, pk, cap, lfy, lfuv, self._golden)
+                out, pk, cap, lfy, lfuv, damp, self._lr, self._golden)
 
     @staticmethod
     def _finalize(pending) -> tuple[bytes, bool]:
         """Materialize a pending frame and entropy-code it (header and
         tile assembly copied from the JAX engine's _finalize)."""
         (kind, qindex, w, h, th, tw, ph, pw, bd, oh, refresh, out,
-         pk, cap, lfy, lfuv, golden_on) = pending
+         pk, cap, lfy, lfuv, cdamp, lr_on, golden_on) = pending
         rs = (w, h) if (tw, th) != (w, h) else None
         mi_cols, mi_rows = 2 * ((tw + 7) >> 3), 2 * ((th + 7) >> 3)
         gh_t, gw_t = (mi_rows + 7) // 8, (mi_cols + 7) // 8
@@ -306,6 +340,25 @@ class SpecTorchEngine(TorchEngine):
         B = gh * gw
         urows, ucols = _lr_nru(th, tw)
         nru = urows * ucols
+        # layouts -- key:   [mode B][uv B][skip B][angle B][split B]
+        #                   [m16 4B][uv16 4B][a16 4B][s16 4B]
+        #                   [strip nsc][cdefs 4][lr nru][taps 6nru]
+        #            inter: [mv8 2B][skip B][strip nsc][cdefs 4][lr nru]
+        #                   [split B][mv16 8B][skip16 4B][refsel B]
+        #                   [taps 6nru]
+        cdef_off = (21 * B if kind == "key" else 3 * B) + nsc
+        lr_arg = None
+        lr_kw = {}
+        if lr_on:
+            lr_choice = grids[cdef_off + 4:cdef_off + 4 + nru].reshape(
+                urows, ucols)
+            lr_arg = (256,) + _lr_table(lr_choice,
+                                        grids[-6 * nru:].reshape(nru, 6))
+            lr_kw["lr_types"] = (1, 0, 0)
+        cdef_hdr = None
+        if cdamp is not None:
+            cdef_hdr = (cdamp,) + tuple(
+                int(x) for x in grids[cdef_off:cdef_off + 4])
         if kind == "key":
             if lvs is None:
                 lvs = [t.cpu().numpy() for t in out[3:6]]
@@ -325,7 +378,7 @@ class SpecTorchEngine(TorchEngine):
                 "key", qindex, mi_cols, mi_rows, spans,
                 (g_mode[:gh_t, :gw_t], g_uv[:gh_t, :gw_t],
                  g_skip[:gh_t, :gw_t]), lv_y, lv_u, lv_v,
-                strip_skip=strip_skip,
+                strip_skip=strip_skip, lr=lr_arg,
                 angles=g_angle[:gh_t, :gw_t],
                 key_split5=(g_split[:gh_t, :gw_t], g_m16[:gh_t, :gw_t],
                             g_uv16[:gh_t, :gw_t], g_a16[:gh_t, :gw_t],
@@ -334,9 +387,11 @@ class SpecTorchEngine(TorchEngine):
                                            render_size=rs,
                                            tile_rows_log2=trl2,
                                            lf_level=lfy, lf_level_uv=lfuv,
-                                           cdef=None)
+                                           cdef=cdef_hdr, **lr_kw)
             hdr.byte_align()
-            seq = SpecSequenceHeader(w, h, bd).seq_obu()
+            seq = SpecSequenceHeader(
+                w, h, bd, enable_cdef=cdamp is not None,
+                enable_restoration=lr_on).seq_obu()
             payload = seq + obu_mod.make_obu(
                 obu_mod.OBU_FRAME,
                 hdr.tobytes() + W.assemble_tile_group(tiles))
@@ -344,12 +399,10 @@ class SpecTorchEngine(TorchEngine):
         if lvs is None:
             lvs = [t.cpu().numpy() for t in out[2:5]]
         ylv, ulv, vlv = lvs
-        # inter layout: [mv8 2B][skip B][strip nsc][cdefs 4][lr nru]
-        #               [split B][mv16 8B][skip16 4B][refsel B][taps 6nru]
         mv8 = grids[:2 * B].reshape(B, 2)
         skip = grids[2 * B:3 * B]
         strip_skip = grids[3 * B:3 * B + nsc] if strip else None
-        tail = 3 * B + nsc + 4 + nru
+        tail = cdef_off + 4 + nru
         splits = grids[tail:tail + B].reshape(gh, gw)
         mvs16 = grids[tail + B:tail + 9 * B].reshape(gh, gw, 4, 2)
         skips16 = grids[tail + 9 * B:tail + 13 * B].reshape(gh, gw, 4)
@@ -360,7 +413,7 @@ class SpecTorchEngine(TorchEngine):
             "inter", qindex, mi_cols, mi_rows, spans,
             (modes, mv8.reshape(gh, gw, 2)[:gh_t, :gw_t],
              skip.reshape(gh, gw)[:gh_t, :gw_t]),
-            ylv, ulv, vlv, strip_skip=strip_skip,
+            ylv, ulv, vlv, strip_skip=strip_skip, lr=lr_arg,
             split3=(splits[:gh_t, :gw_t], mvs16[:gh_t, :gw_t],
                     skips16[:gh_t, :gw_t]))
         hdr = W.write_inter_frame_header(
@@ -368,7 +421,7 @@ class SpecTorchEngine(TorchEngine):
             refresh_frame_flags=0x01 if refresh else 0x00,
             ref_slots=(0, 0, 0, 1, 0, 0, 0) if golden_on else (0,) * 7,
             render_size=rs, tile_rows_log2=trl2,
-            lf_level=lfy, lf_level_uv=lfuv, cdef=None)
+            lf_level=lfy, lf_level_uv=lfuv, cdef=cdef_hdr, **lr_kw)
         hdr.byte_align()
         payload = obu_mod.make_obu(
             obu_mod.OBU_FRAME, hdr.tobytes() + W.assemble_tile_group(tiles))

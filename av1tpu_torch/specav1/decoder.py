@@ -1,17 +1,19 @@
-# Copied from av1tpu/specav1/decoder.py (without the CDEF branch and the
-# uniform-grid deblocking shortcut, which reach JAX modules).
+# Copied from av1tpu/specav1/decoder.py (without the uniform-grid deblocking
+# shortcut, which reaches a JAX module).
 """Top-level spec-AV1 decoder: temporal units -> frames.
 
 Decodes what the port encodes: KEY and INTER frames, one or two
-references, the deblocking loop filter (numpy, from the decoded
-per-4x4 grids) and loop restoration.  A frame header that turns on CDEF
-raises ``NotImplementedError`` naming the module still to port.
+references, and the in-loop filters in the spec's order, all numpy:
+deblocking (from the decoded per-4x4 grids), CDEF (one strength pair
+per frame, ``cdef_bits = 0``) and loop restoration, whose stripe
+boundaries read the post-deblock, pre-CDEF planes.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from av1tpu_torch.specav1 import cdef as cdef_mod
 from av1tpu_torch.specav1 import headers, loopfilter, obu
 from av1tpu_torch.specav1 import lr as lr_mod
 from av1tpu_torch.specav1.bits import BitReader
@@ -45,10 +47,6 @@ class Decoder:
         assert self.seq is not None, "no sequence header seen"
         seq = self.seq
         hdr = headers.parse_frame_header(payload, seq)
-        c = hdr.cdef
-        if any(c.y_pri) or any(c.y_sec) or any(c.uv_pri) or any(c.uv_sec):
-            raise NotImplementedError(
-                "CDEF (specav1/cdef.py) is not ported to av1tpu_torch yet")
         if hdr.show_existing_frame:
             planes, w, h = self.ref_slot_meta[hdr.frame_to_show_map_idx]
             return [self._crop_dims(planes, w, h)]
@@ -105,17 +103,30 @@ class Decoder:
     def _finish_frame(self, td: TileDecoder, hdr) -> tuple:
         """Returns the FULL coded-size planes (reference slots keep the
         SB-padded area: inter prediction clamps against coded dims).
-        In-loop filter order per spec: deblock -> (CDEF, refused at the
-        frame header) -> LR."""
+        In-loop filter order per spec: deblock -> CDEF -> LR."""
         planes = (td.planes[0], td.planes[1], td.planes[2])
         if any(hdr.lf.level):
             planes = self._deblock(td, hdr, planes)
+        pre_cdef = planes  # post-deblock: LR stripe-boundary source
+        c = hdr.cdef
+        if any(c.y_pri) or any(c.y_sec) or any(c.uv_pri) or any(c.uv_sec):
+            if c.bits:
+                # cdef_bits > 0 streams carry per-64x64 cdef_idx bits in
+                # the tiles, which TileDecoder does not read — the
+                # arithmetic decode would already have desynced
+                raise NotImplementedError("cdef_bits > 0")
+            fy, fu, fv = cdef_mod.cdef_frame(
+                planes, td.skips, y_pri=c.y_pri[0], y_sec=c.y_sec[0],
+                uv_pri=c.uv_pri[0], uv_sec=c.uv_sec[0],
+                damping=c.damping, bit_depth=self.seq.bit_depth,
+                th=hdr.frame_height, tw=hdr.frame_width)
+            dt = planes[0].dtype
+            planes = (fy.astype(dt), fu.astype(dt), fv.astype(dt))
         if hdr.lr.uses_lr:
             # spec 7.17; td.lr_state carries the per-RU syntax read in
-            # the tiles.  With CDEF off, the LR stripe boundaries read
-            # the deblocked planes.
+            # the tiles
             fy, fu, fv = lr_mod.apply_lr_frame(
-                td.lr_state, planes, planes, self.seq.bit_depth,
+                td.lr_state, planes, pre_cdef, self.seq.bit_depth,
                 hdr.frame_height, hdr.frame_width)
             dt = planes[0].dtype
             planes = (fy.astype(dt), fu.astype(dt), fv.astype(dt))

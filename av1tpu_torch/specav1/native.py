@@ -1,5 +1,5 @@
-# Copied from av1tpu/specav1/native.py (without the loop-restoration unit
-# syntax, which the port does not code).
+# Copied from av1tpu/specav1/native.py (without the CDF read-back, which the
+# port does not use).
 """ctypes surface for the native spec-AV1 tile writer (spec_tile.cc).
 
 The C++ writer walks a whole tile per call (the Python TileWriter costs
@@ -62,6 +62,10 @@ def _lib() -> ctypes.CDLL:
         lib.stw_encode_inter32.restype = ctypes.c_int64
         lib.stw_set_tile_row.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                          ctypes.c_int]
+        lib.stw_set_lr.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int]
         lib.stw_densify.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                     ctypes.c_void_p, ctypes.c_void_p,
                                     ctypes.c_int]
@@ -161,7 +165,7 @@ def _pool():
 
 def encode_tile_rows(kind: str, qindex: int, mi_cols: int, mi_rows: int,
                      spans: list, grid_args: tuple, ylv, ulv, vlv,
-                     strip_skip=None, angles=None,
+                     strip_skip=None, lr=None, angles=None,
                      split3=None, key_split5=None) -> list:
     """Encode one spec tile per (mi_row0, mi_row1) span, in parallel
     (the C++ walker releases the GIL).  grid_args: the per-frame grid
@@ -189,7 +193,7 @@ def encode_tile_rows(kind: str, qindex: int, mi_cols: int, mi_rows: int,
         return enc(qindex, mi_cols, mi1 - mi0, *sliced,
                    ylv[mi0 * 4:], ulv[mi0 * 2:], vlv[mi0 * 2:],
                    tile_row0=mi0, frame_mi_rows=mi_rows, strip_skip=ss,
-                   **kw)
+                   lr=lr, **kw)
 
     if len(spans) == 1:
         return [one(spans[0])]
@@ -203,7 +207,7 @@ def encode_inter32_tile(qindex: int, mi_cols: int, mi_rows: int,
                         tile_row0: int = 0,
                         frame_mi_rows: int = 0,
                         strip_skip: np.ndarray | None = None,
-                        splits: np.ndarray | None = None,
+                        lr=None, splits: np.ndarray | None = None,
                         mvs16: np.ndarray | None = None,
                         skips16: np.ndarray | None = None) -> bytes:
     """Emit one spec tile for a 32x32-grid single-ref inter frame with
@@ -245,6 +249,16 @@ def encode_inter32_tile(qindex: int, mi_cols: int, mi_rows: int,
         if tile_row0 or frame_mi_rows:
             lib.stw_set_tile_row(w, tile_row0,
                                  frame_mi_rows or mi_rows)
+        if lr is not None:
+            # (unit_size, choice (urows, ucols) int32, taps (N, 6):
+            # per-row (v0, v1, v2, h0, h1, h2))
+            usz, choice, taps = lr
+            choice = np.ascontiguousarray(np.asarray(choice, np.int32))
+            taps = np.ascontiguousarray(np.asarray(taps, np.int32))
+            lib.stw_set_lr(w, usz, choice.shape[0], choice.shape[1],
+                           choice.ctypes.data_as(ctypes.c_void_p),
+                           taps.ctypes.data_as(ctypes.c_void_p),
+                           taps.shape[0])
         for tid, a in _fc_buffers(qindex):
             ok = lib.stw_set_cdf(w, tid, a.ctypes.data_as(ctypes.c_void_p),
                                  a.size)
@@ -290,7 +304,7 @@ def encode_intra32_tile(qindex: int, mi_cols: int, mi_rows: int,
                         tile_row0: int = 0,
                         frame_mi_rows: int = 0,
                         strip_skip: np.ndarray | None = None,
-                        angles: np.ndarray | None = None,
+                        lr=None, angles: np.ndarray | None = None,
                         split5=None) -> bytes:
     """Emit one spec tile for a fixed-32x32-grid intra frame.
 
@@ -335,6 +349,16 @@ def encode_intra32_tile(qindex: int, mi_cols: int, mi_rows: int,
         if tile_row0 or frame_mi_rows:
             lib.stw_set_tile_row(w, tile_row0,
                                  frame_mi_rows or mi_rows)
+        if lr is not None:
+            # (unit_size, choice (urows, ucols) int32, taps (N, 6):
+            # per-row (v0, v1, v2, h0, h1, h2))
+            usz, choice, taps = lr
+            choice = np.ascontiguousarray(np.asarray(choice, np.int32))
+            taps = np.ascontiguousarray(np.asarray(taps, np.int32))
+            lib.stw_set_lr(w, usz, choice.shape[0], choice.shape[1],
+                           choice.ctypes.data_as(ctypes.c_void_p),
+                           taps.ctypes.data_as(ctypes.c_void_p),
+                           taps.shape[0])
         for tid, a in _fc_buffers(qindex):
             ok = lib.stw_set_cdf(w, tid, a.ctypes.data_as(ctypes.c_void_p),
                                  a.size)

@@ -12,13 +12,16 @@ MC's U and V windows in one launch.
 With a GOLDEN reference (the GOP keyframe's reconstruction) every
 32x32 block picks LAST or GOLDEN by its full-pel SSDs; window reads of
 the selected plane go through the two-plane K1 (``gather_windows2``).
-With ``deblock`` the returned reconstruction is loop-filtered
-(``specav1.loopfilter``).
+The in-loop filters follow the reference's order: with ``deblock`` the
+reconstruction is loop-filtered (``specav1.loopfilter``), with ``cdef``
+CDEF strengths are searched and applied (``specav1.torch_cdef``), with
+``lr`` the Wiener loop restoration is searched and applied per unit
+(``specav1.torch_lr``).
 
-The port covers ``cdef=False``, ``lr=False``, no striping; ``split16``
-and ``refine`` stay on.  Arithmetic that JAX runs in int32 (including
-the reference's ``int64`` casts, which run as int32 with x64 off) runs
-in int32 here, wrap included.
+The port covers no striping; ``split16`` and ``refine`` stay on.
+Arithmetic that JAX runs in int32 (including the reference's ``int64``
+casts, which run as int32 with x64 off) runs in int32 here, wrap
+included.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from av1tpu_torch.encoder.kernels import gather, motion, refine
-from av1tpu_torch.specav1 import inter_recon, loopfilter
+from av1tpu_torch.specav1 import inter_recon, loopfilter, torch_cdef, torch_lr
 from av1tpu_torch.specav1 import lr as _NL
 from av1tpu_torch.specav1.transforms import Quantizer, fwd_mat, inv_tx2d_add
 
@@ -226,15 +229,42 @@ def lr_off_outputs(th: int, tw: int, device):
             torch.zeros((nru, 6), dtype=I32, device=device))
 
 
+def build_skip8(skip_blocks, strip_skip, th: int, tw: int, pw: int,
+                split=None, skip16=None):
+    """(uh, uw) per-8x8-unit coded-skip grid for CDEF (the reference's
+    ``jax_inter.build_skip8``): the 32x32 block skips, each split
+    block's per-quadrant skips (split, skip16 (B, 4) in z-order), and
+    the 16x16 strip block skips when th % 32 == 16."""
+    fh8 = ((th + 7) >> 3) << 3
+    fw8 = ((tw + 7) >> 3) << 3
+    sk8 = skip_blocks.to(I32).repeat_interleave(4, 0).repeat_interleave(4, 1)
+    if split is not None:
+        gh, gw = skip_blocks.shape
+        s16 = skip16.reshape(gh, gw, 2, 2).permute(0, 2, 1, 3).reshape(
+            2 * gh, 2 * gw).to(I32)
+        s16_8 = s16.repeat_interleave(2, 0).repeat_interleave(2, 1)
+        m = (split.reshape(gh, gw) != 0).repeat_interleave(4, 0) \
+            .repeat_interleave(4, 1)
+        sk8 = torch.where(m, s16_8, sk8)
+    if th % 32 == 16:
+        nsc = 2 * (pw // 32)
+        srow = (th - 16) // 8
+        strip8 = strip_skip.to(I32)[:nsc].repeat_interleave(2)
+        sk8 = sk8.clone()
+        sk8[srow:srow + 2, :strip8.shape[0]] = strip8[None]
+    return sk8[:fh8 // 8, :fw8 // 8]
+
+
 def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
                  bit_depth: int, th: int = 0, tw: int = 0,
                  qround: float = 0.70, gld=None, lf_y: int = 0,
-                 lf_uv: int = 0, deblock: bool = False):
+                 lf_uv: int = 0, deblock: bool = False, cdef: bool = False,
+                 cdef_damping: int = 4, lr: bool = False):
     """One P-frame.  y/u/v: SB-padded source planes; ref_*: the previous
     reconstruction (int32, same padded shape).  Returns the reference's
     16-tuple (mvs (B,2) 1/8-pel, skips (B,), lv_y, lv_u, lv_v, rec_y,
     rec_u, rec_v, strip_skip, cdefs, lr_choice, split (B,), mv16 (B,4,2),
-    skip16 (B,4), refsel (B,), lr_taps) with CDEF and LR off.
+    skip16 (B,4), refsel (B,), lr_taps).
 
     gld: the GOLDEN reference planes (y, u, v), the reference's
     golden=True: each 32x32 block picks LAST (ref_*) or GOLDEN from its
@@ -244,7 +274,11 @@ def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
     1 = GOLDEN.  GOLDEN is evaluated at the zero MV only.
 
     deblock: loop-filter the returned reconstruction at levels lf_y /
-    lf_uv (the split grid and a 16-px strip add their mid-block edges)."""
+    lf_uv (the split grid and a 16-px strip add their mid-block edges).
+    cdef: then search and apply the CDEF frame strengths at damping
+    cdef_damping (cdefs: [y_pri, y_sec, uv_pri, uv_sec]).  lr: then the
+    per-unit Wiener search on luma, reading the post-deblock luma at
+    stripe boundaries (lr_choice, lr_taps; all off without it)."""
     dev = y.device
     H, Wd = y.shape
     n = 32
@@ -417,8 +451,20 @@ def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
         rec_y_p, rec_u_p, rec_v_p = loopfilter.deblock_frame(
             rec_y_p, rec_u_p, rec_v_p, lf_y, lf_uv, lf_uv, bit_depth, th,
             tw, split=split.reshape(gh, gw), strip=(th % 32 == 16))
-    cdefs = torch.zeros((4,), dtype=I32, device=dev)
-    lr_choice, lr_taps = lr_off_outputs(th, tw, dev)
+    pre_cdef_y = rec_y_p  # post-deblock: the LR stripe-boundary source
+    if cdef:
+        skip8 = build_skip8(skip.reshape(gh, gw), strip_skip, th, tw, Wd,
+                            split=split, skip16=skip16_z)
+        rec_y_p, rec_u_p, rec_v_p, cdefs = torch_cdef.cdef_search_apply(
+            rec_y_p, rec_u_p, rec_v_p, y, u, v, skip8, cdef_damping,
+            bit_depth=bit_depth, th=th, tw=tw)
+    else:
+        cdefs = torch.zeros((4,), dtype=I32, device=dev)
+    if lr:
+        rec_y_p, lr_choice, lr_taps = torch_lr.lr_search_apply(
+            rec_y_p, pre_cdef_y, y, bit_depth=bit_depth, th=th, tw=tw)
+    else:
+        lr_choice, lr_taps = lr_off_outputs(th, tw, dev)
     if refsel is None:
         refsel = torch.zeros((B,), dtype=I32, device=dev)
     return (mv8, skip, lv_y_p, lv_u_p, lv_v_p, rec_y_p, rec_u_p, rec_v_p,

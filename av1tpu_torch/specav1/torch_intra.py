@@ -11,8 +11,10 @@ four quadrants with mode-derived transform kinds.  Reconstruction is the
 spec-exact integer inverse transform, so a conforming decoder
 reproduces it bit for bit.
 
-The port covers ``split16=True`` with CDEF and LR off; deblocking
-(``specav1.loopfilter``) filters the finished reconstruction.
+The port covers ``split16=True``.  The in-loop filters run on the
+finished reconstruction in the reference's order: deblocking
+(``specav1.loopfilter``), CDEF (``specav1.torch_cdef``), then the Wiener
+loop restoration (``specav1.torch_lr``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import numpy as np
 import torch
 
 from av1tpu_torch.encoder.kernels.motion import first_argmin
-from av1tpu_torch.specav1 import loopfilter, recon, torch_inter
+from av1tpu_torch.specav1 import (loopfilter, recon, torch_cdef, torch_inter,
+                                  torch_lr)
 from av1tpu_torch.specav1.tile import MODE_TO_TXFM
 from av1tpu_torch.specav1.transforms import (Quantizer, fwd_mat,
                                              inv_tx2d_add,
@@ -592,14 +595,17 @@ def _block_step(ctx: _KeyCtx, rec_y, rec_u, rec_v, src_y, src_u, src_v,
 def encode_frame(y, u, v, qindex: int, nbr: int, nbc: int, bit_depth: int,
                  th: int = 0, tw: int = 0, tile_row_starts: tuple = (),
                  qround: float = 0.70, lf_y: int = 0, lf_uv: int = 0,
-                 deblock: bool = False):
+                 deblock: bool = False, cdef: bool = False,
+                 cdef_damping: int = 4, lr: bool = False):
     """One keyframe.  y/u/v: SB-padded source planes (nbr x nbc blocks
     of 32).  Returns the reference's 19-tuple: (rec_y, rec_u, rec_v,
     lv_y, lv_u, lv_v, mode, uv_mode, skip, angle, split, m16, uv16,
-    a16, s16 grids, strip_skip, cdefs, lr_choice, lr_taps), CDEF and LR
-    off.  With ``deblock`` the returned reconstruction is loop-filtered
-    at levels lf_y / lf_uv; the wavefront itself predicts from the
-    unfiltered planes (the spec's placement)."""
+    a16, s16 grids, strip_skip, cdefs, lr_choice, lr_taps).  The
+    wavefront predicts from the unfiltered planes (the spec's
+    placement); the returned reconstruction is then deblocked at levels
+    lf_y / lf_uv with ``deblock``, CDEF-filtered at searched strengths
+    (damping cdef_damping) with ``cdef``, and loop-restored per unit
+    with ``lr``."""
     dev = y.device
     H, Wd = nbr * 32, nbc * 32
     th = th or H
@@ -658,7 +664,19 @@ def encode_frame(y, u, v, qindex: int, nbr: int, nbc: int, bit_depth: int,
         rec_y, rec_u, rec_v = loopfilter.deblock_frame(
             rec_y, rec_u, rec_v, lf_y, lf_uv, lf_uv, bit_depth, th, tw,
             split=grids[4], strip=strip)
-    cdefs = torch.zeros((4,), dtype=I32, device=dev)
-    lr_choice, lr_taps = torch_inter.lr_off_outputs(th, tw, dev)
+    pre_cdef_y = rec_y  # post-deblock: the LR stripe-boundary source
+    if cdef:
+        skip8 = torch_inter.build_skip8(grids[2], strip_skip, th, tw, Wd,
+                                        split=grids[4], skip16=grids[8])
+        rec_y, rec_u, rec_v, cdefs = torch_cdef.cdef_search_apply(
+            rec_y, rec_u, rec_v, y, u, v, skip8, cdef_damping,
+            bit_depth=bit_depth, th=th, tw=tw)
+    else:
+        cdefs = torch.zeros((4,), dtype=I32, device=dev)
+    if lr:
+        rec_y, lr_choice, lr_taps = torch_lr.lr_search_apply(
+            rec_y, pre_cdef_y, y, bit_depth=bit_depth, th=th, tw=tw)
+    else:
+        lr_choice, lr_taps = torch_inter.lr_off_outputs(th, tw, dev)
     return (rec_y, rec_u, rec_v, lv_y, lv_u, lv_v, *grids, strip_skip,
             cdefs, lr_choice, lr_taps)

@@ -23,24 +23,34 @@ Phases (any failure exits non-zero; nothing is caught):
                                   scene, a drift away from it under the cut
                                   threshold, a cut back to it, which must
                                   code as an inter frame on GOLDEN blocks
+              slice-1080p-default the grain clip in the daemon's default
+                                  config, TpuEncoderConfig(chunk=1):
+                                  golden, CDEF and LR on, deblocking off
               slice-720p-clean    1 key + 3 P, clean 1280x720: the GOP's
                                   deblocking decision is on (strip + loop
                                   filter + split), header levels nonzero
-              every kernel of a path must launch (K1: 3 one-plane + 5
-              two-plane launches per golden P-frame, 7 one-plane with
-              golden off), and the port's spec
-              decoder must reproduce every plane of every frame of each
-              stream; fps, bits per pixel, Y-PSNR, key/P ms, GOLDEN share
-              per frame
+              slice-720p-default  the 720p clip in the default config:
+                                  deblocking, CDEF and LR on the 16-px
+                                  strip geometry
+              the first three with CDEF and LR off; every kernel of a
+              path must launch (K1: 3 one-plane + 5 two-plane launches
+              per golden P-frame, 7 one-plane with golden off), and the
+              port's spec decoder must reproduce every plane of every
+              frame of each stream; fps, bits per pixel, Y-PSNR, key/P ms,
+              GOLDEN share per frame, and on the default paths the CDEF
+              strengths and the share of restoration units on and solved
+              per frame, held against the frame headers
   5. conform  256x144 streams (16-px strip) decoded by the port's own spec
               decoder must equal the port's reconstruction, and the CPU run
               of the port must give the same bytes: a grainy golden-off
-              1 key + 3 P, and a clean golden key A, inter B, inter A with
-              the loop filter on and GOLDEN blocks
+              1 key + 3 P, a clean golden key A, inter B, inter A with
+              the loop filter on and GOLDEN blocks, and the grainy clip in
+              the default config with CDEF and LR on
 
-With --profile, one more P-frame of the 1080p golden path and of the 720p
-clean path runs under torch.profiler after the slices: device-busy ms,
-idle share, launches, the loop filter's share and the top kernels.
+With --profile, one more P-frame of each golden path runs after the
+slices, timed with each in-loop filter stage (deblocking, CDEF, LR)
+bracketed by synchronizes, then under torch.profiler: device-busy ms,
+idle share, launches, each stage's ms and launches, the top kernels.
 
 Before the last line come a JSON object with each kernel's launch count
 on the main path, error, timings and bound (per main-path shape under
@@ -528,12 +538,16 @@ def _counters():
             "refine_ssd": refine.refine_ssd}
 
 
-def run_slice(name: str, frames, golden: bool, dev_name: str, Q: int = 96):
+def run_slice(name: str, frames, golden: bool, dev_name: str, Q: int = 96,
+              filters: bool = False):
     """One stream through encode_stream on the card, with the launch
     counts set to 0 just before and read just after.  Each dispatch is
     bracketed by synchronizes for the per-frame times (the host thread
     launches and entropy-codes in turn, so this costs the stream
-    little).  Returns a dict of what the run showed."""
+    little).  ``filters``: the daemon's default config apart from
+    chunking, TpuEncoderConfig(chunk=1) (golden, CDEF and LR on, so
+    ``golden`` is True); without it CDEF and LR are off.  Returns a dict
+    of what the run showed."""
     import numpy as np
     import torch
 
@@ -541,7 +555,8 @@ def run_slice(name: str, frames, golden: bool, dev_name: str, Q: int = 96):
     from av1tpu_torch.spec_engine import SpecTorchEngine
 
     class Timed(SpecTorchEngine):
-        """Records per dispatch: kind, ms, GOLDEN share, recon planes."""
+        """Records per dispatch: kind, ms, GOLDEN share, recon planes,
+        filter levels, CDEF strengths and LR choices."""
 
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
@@ -556,9 +571,12 @@ def run_slice(name: str, frames, golden: bool, dev_name: str, Q: int = 96):
             kind, out = pend[0], pend[11]
             rec = out[0:3] if kind == "key" else out[5:8]
             share = None if kind == "key" else out[14].float().mean()
+            cdefs, lrc = (out[16], out[17]) if kind == "key" else \
+                (out[9], out[10])
             self.rows.append((kind, ms, share,
                               tuple(p.to(torch.int16) for p in rec),
-                              pend[14], pend[15]))
+                              pend[14], pend[15], cdefs.tolist(),
+                              lrc.cpu().numpy()))
             return pend
 
         def _finalize(self, pending):
@@ -569,7 +587,8 @@ def run_slice(name: str, frames, golden: bool, dev_name: str, Q: int = 96):
 
     N = len(frames)
     H, W = frames[0].height, frames[0].width
-    cfg = TpuEncoderConfig(chunk=1, golden=golden, cdef=False, lr=False)
+    cfg = (TpuEncoderConfig(chunk=1) if filters else
+           TpuEncoderConfig(chunk=1, golden=golden, cdef=False, lr=False))
     eng = Timed(cfg, device=dev_name)
     counters = _counters()
     for fn in counters.values():
@@ -612,6 +631,16 @@ def run_slice(name: str, frames, golden: bool, dev_name: str, Q: int = 96):
     log(f"{name}: launches {launches}, per P-frame "
         f"{ {k: round(v / n_p, 2) for k, v in launches.items()} }, filter "
         f"levels (y, uv) per frame {[(r[4], r[5]) for r in eng.rows]}")
+    if filters:
+        from av1tpu_torch.specav1 import torch_lr
+        solved = len(torch_lr.PRESETS)
+        lr_shares = [(round(float((r[7] >= 0).mean()), 4),
+                      round(float((r[7] == solved).mean()), 4))
+                     for r in eng.rows]
+        log(f"{name}: CDEF strengths [y_pri, y_sec, uv_pri, uv_sec] per "
+            f"frame {[r[6] for r in eng.rows]}; share of the "
+            f"{eng.rows[0][7].size} restoration units on, and solved, per "
+            f"frame {lr_shares}")
     return {"eng": eng, "out": out, "keys": keys, "launches": launches,
             "shares": shares, "frame": frames[-1]}
 
@@ -658,13 +687,51 @@ def need_k1_launches(name: str, launches: dict, n_p: int, one: int,
              f"{one} one-plane + {two} two-plane a frame")
 
 
+def stream_headers(out):
+    """(sequence header, [frame header]) parsed from a run's payloads."""
+    from av1tpu_torch.specav1 import headers, obu
+    seq, hdrs = None, []
+    for payload, _ in out:
+        for o in obu.parse_obus(payload):
+            if o.type == obu.OBU_SEQUENCE_HEADER:
+                seq = headers.parse_sequence_header(o.payload)
+            elif o.type == obu.OBU_FRAME:
+                hdrs.append(headers.parse_frame_header(o.payload, seq))
+    return seq, hdrs
+
+
+def check_filter_headers(name: str, r: dict) -> None:
+    """A default-config stream: the sequence header enables CDEF and LR,
+    each frame header carries the strengths the encoder searched, with
+    the damping of its qindex, and luma WIENER restoration."""
+    from av1tpu_torch.spec_engine import cdef_damping
+    seq, hdrs = stream_headers(r["out"])
+    if not (seq.enable_cdef and seq.enable_restoration):
+        fail(f"{name}: sequence header enable_cdef {seq.enable_cdef}, "
+             f"enable_restoration {seq.enable_restoration}")
+    for i, (h, row) in enumerate(zip(hdrs, r["eng"].rows)):
+        c = h.cdef
+        want = list(row[6])
+        got = [c.y_pri[0], c.y_sec[0], c.uv_pri[0], c.uv_sec[0]]
+        damp = cdef_damping(h.base_q_idx)
+        if c.bits or c.damping != damp or want != got:
+            fail(f"{name}: frame {i} CDEF header {got} (bits {c.bits}, "
+                 f"damping {c.damping} for {damp}) for searched strengths "
+                 f"{want}")
+        if list(h.lr.frame_restoration_type) != [1, 0, 0]:
+            fail(f"{name}: frame {i} restoration types "
+                 f"{h.lr.frame_restoration_type}")
+    log(f"{name}: headers enable CDEF and LR; per-frame CDEF strengths "
+        "as searched, damping from each frame's qindex, luma WIENER "
+        "restoration")
+
+
 def phase_slices(dev_name: str):
-    """The three full-size paths; returns each path's launch counts and
+    """The five full-size paths; returns each path's launch counts and
     its run (engine and last frame included)."""
     import numpy as np
 
     from av1tpu_torch.spec_engine import noise_floor
-    from av1tpu_torch.specav1 import headers, obu
     from av1tpu_torch.utils.cleansrc import clean_frame
     from av1tpu_torch.utils.testsrc import Frame
     W, H = SIZES["1080p"]
@@ -684,6 +751,21 @@ def phase_slices(dev_name: str):
     need_k1_launches("slice-1080p-grain", r["launches"], 3, 7, 0)
     decode_check("slice-1080p-grain", r)
     counts["slice-1080p-grain"] = r["launches"]
+
+    # the same grainy clip in the daemon's default config: golden, CDEF
+    # and LR on (what a grainy Blu-ray rip runs: deblocking off)
+    r = run_slice("slice-1080p-default", frames, True, dev_name,
+                  filters=True)
+    if r["keys"] != [True, False, False, False] or r["eng"]._gop_deblock:
+        fail(f"slice-1080p-default: frame types {r['keys']}, deblock "
+             f"{r['eng']._gop_deblock}")
+    check_filter_headers("slice-1080p-default", r)
+    need_launches("slice-1080p-default", r["launches"],
+                  ("gather_windows", "gather_windows2", "refine_ssd"))
+    need_k1_launches("slice-1080p-default", r["launches"], 3, 3, 5)
+    decode_check("slice-1080p-default", r)
+    counts["slice-1080p-default"] = r["launches"]
+    runs["slice-1080p-default"] = r
 
     # two references: scene A, five blends towards scene B (each step
     # under the scene-cut threshold), then a cut back to A
@@ -722,14 +804,7 @@ def phase_slices(dev_name: str):
     if r["keys"] != [True, False, False, False] or not r["eng"]._gop_deblock:
         fail(f"slice-720p-clean: frame types {r['keys']}, deblock "
              f"{r['eng']._gop_deblock}")
-    seq, levels = None, []
-    for payload, _ in r["out"]:
-        for o in obu.parse_obus(payload):
-            if o.type == obu.OBU_SEQUENCE_HEADER:
-                seq = headers.parse_sequence_header(o.payload)
-            elif o.type == obu.OBU_FRAME:
-                levels.append(tuple(headers.parse_frame_header(
-                    o.payload, seq).lf.level))
+    levels = [tuple(h.lf.level) for h in stream_headers(r["out"])[1]]
     if len(levels) != 4 or not all(all(lv) for lv in levels):
         fail(f"slice-720p-clean: header filter levels {levels}")
     log(f"slice-720p-clean: deblocking on, frame-header levels {levels}")
@@ -739,18 +814,50 @@ def phase_slices(dev_name: str):
     decode_check("slice-720p-clean", r)
     counts["slice-720p-clean"] = r["launches"]
     runs["slice-720p-clean"] = r
+
+    # the same clip in the default config: deblock, then CDEF, then LR,
+    # on the 16-px strip geometry (build_skip8's strip rows)
+    r = run_slice("slice-720p-default", frames, True, dev_name, filters=True)
+    if r["keys"] != [True, False, False, False] or not r["eng"]._gop_deblock:
+        fail(f"slice-720p-default: frame types {r['keys']}, deblock "
+             f"{r['eng']._gop_deblock}")
+    levels = [tuple(h.lf.level) for h in stream_headers(r["out"])[1]]
+    if len(levels) != 4 or not all(all(lv) for lv in levels):
+        fail(f"slice-720p-default: header filter levels {levels}")
+    check_filter_headers("slice-720p-default", r)
+    need_launches("slice-720p-default", r["launches"],
+                  ("gather_windows", "gather_windows2", "refine_ssd"))
+    need_k1_launches("slice-720p-default", r["launches"], 3, 3, 5)
+    decode_check("slice-720p-default", r)
+    counts["slice-720p-default"] = r["launches"]
+    runs["slice-720p-default"] = r
     return counts, runs
 
 
-def phase_profile(runs: dict) -> None:
-    """One more P-frame per two-reference path: its time with the loop
-    filter bracketed by synchronizes, then the same frame under
-    torch.profiler for the device-busy time and the launches."""
-    import torch
+def _device_events(prof):
+    """(device-busy ms, device launches, device rows) of a
+    torch.profiler run."""
     from torch.autograd import DeviceType
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in rows) / 1e3,
+            sum(e.count for e in rows), rows)
+
+
+def phase_profile(runs: dict) -> None:
+    """One more P-frame per path run with golden on: its time with each
+    in-loop filter stage (deblocking, CDEF, LR) bracketed by
+    synchronizes, then the same frame under torch.profiler for the
+    device-busy time and the launches, and each stage alone under the
+    profiler on the inputs it had in that frame."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from av1tpu_torch.specav1 import loopfilter
+    from av1tpu_torch.specav1 import loopfilter, torch_cdef, torch_lr
+    stages = {"loop filter": (loopfilter, "deblock_frame"),
+              "CDEF": (torch_cdef, "cdef_search_apply"),
+              "LR": (torch_lr, "lr_search_apply")}
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     def submit(eng, frame):
         torch.cuda.synchronize()
@@ -761,33 +868,46 @@ def phase_profile(runs: dict) -> None:
 
     for name, r in runs.items():
         eng, frame = r["eng"], r["frame"]
-        spent = [0.0]
-        orig = loopfilter.deblock_frame
+        spent, calls, orig = {}, {}, {}
+        for st, (mod, attr) in stages.items():
+            orig[st] = getattr(mod, attr)
 
-        def timed(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            res = orig(*a, **k)
-            torch.cuda.synchronize()
-            spent[0] += (time.perf_counter() - t) * 1e3
-            return res
+            def timed(*a, _st=st, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = orig[_st](*a, **k)
+                torch.cuda.synchronize()
+                spent[_st] = spent.get(_st, 0.0) + \
+                    (time.perf_counter() - t) * 1e3
+                calls[_st] = (a, k)
+                return res
 
-        loopfilter.deblock_frame = timed
-        ms = min(submit(eng, frame) for _ in range(3))
-        filt = spent[0] / 3
-        loopfilter.deblock_frame = orig
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+            setattr(mod, attr, timed)
+        try:
+            ms = min(submit(eng, frame) for _ in range(3))
+        finally:
+            for st, (mod, attr) in stages.items():
+                setattr(mod, attr, orig[st])
+        with profile(activities=acts) as prof:
             submit(eng, frame)
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in rows) / 1e3
-        launches = sum(e.count for e in rows)
+        busy, launches, rows = _device_events(prof)
         if not busy > 0:
             fail(f"{name}: the profiler saw no device time")
-        log(f"profile {name}: P-frame {ms:.1f} ms (best of 3), loop filter "
-            f"{filt:.1f} ms of it, device busy {busy:.2f} ms, idle share "
-            f"{1 - busy / ms:.3f}, {launches} device launches")
+        parts = []
+        for st in stages:
+            if st not in calls:
+                continue
+            a, k = calls[st]
+            with profile(activities=acts) as p2:
+                orig[st](*a, **k)
+                torch.cuda.synchronize()
+            sb, sl, _ = _device_events(p2)
+            parts.append(f"{st} {spent[st] / 3:.1f} ms ({sl} launches, "
+                         f"device busy {sb:.2f} ms)")
+        log(f"profile {name}: P-frame {ms:.1f} ms (best of 3), device busy "
+            f"{busy:.2f} ms, idle share {1 - busy / ms:.3f}, {launches} "
+            "device launches" + ("; of it " + ", ".join(parts) if parts
+                                 else ""))
         rows.sort(key=lambda e: -e.self_device_time_total)
         for e in rows[:6]:
             log(f"profile {name}:   {e.self_device_time_total / 1e3:.3f} ms "
@@ -796,9 +916,10 @@ def phase_profile(runs: dict) -> None:
 
 def phase_conform(dev_name: str):
     """256x144 streams: the port's spec decoder == port recon; CPU bytes
-    == GPU bytes.  A grainy golden-off clip, and a clean golden one (key
-    A, inter B, inter A; frame types pinned) that turns the loop filter
-    on and must choose GOLDEN blocks."""
+    == GPU bytes.  A grainy golden-off clip, a clean golden one (key A,
+    inter B, inter A; frame types pinned) that turns the loop filter on
+    and must choose GOLDEN blocks, and the grainy clip in the default
+    config (golden, CDEF and LR on), whose filters must turn on."""
     import numpy as np
 
     from av1tpu_torch.config import TpuEncoderConfig
@@ -806,33 +927,44 @@ def phase_conform(dev_name: str):
     from av1tpu_torch.specav1 import decoder
     from av1tpu_torch.utils.cleansrc import clean_frame
 
-    def run(device, golden):
-        if golden:
+    def run(device, kind):
+        if kind == "clean":
             frames = [clean_frame(256, 144, 0, 0), clean_frame(256, 144, 5, 1),
                       clean_frame(256, 144, 1, 0)]
         else:
             rng = np.random.default_rng(3)
             frames = [grainy_frame(256, 144, i, rng) for i in range(4)]
-        eng = SpecTorchEngine(TpuEncoderConfig(chunk=1, golden=golden,
-                                               cdef=False, lr=False),
-                              device=device)
+        cfg = (TpuEncoderConfig(chunk=1) if kind == "default" else
+               TpuEncoderConfig(chunk=1, golden=kind == "clean", cdef=False,
+                                lr=False))
+        eng = SpecTorchEngine(cfg, device=device)
         eng.start_stream()
-        payloads, recons, n_golden = [], [], 0
+        payloads, recons, n_golden, cdefs, lr_on = [], [], 0, [], 0
         for i, f in enumerate(frames):
             pend = eng._submit(f, 96, is_key=(i == 0))
+            out = pend[11]
             if i:
-                n_golden += int(pend[11][14].sum())
+                n_golden += int(out[14].sum())
+            c, lrc = (out[16], out[17]) if i == 0 else (out[9], out[10])
+            cdefs.append(c.tolist())
+            lr_on += int((lrc >= 0).sum())
             recons.append(eng._ref)
             payloads.append(eng._finalize(pend)[0])
-        return payloads, recons, n_golden, eng._gop_deblock
+        return payloads, recons, n_golden, eng._gop_deblock, cdefs, lr_on
 
-    for golden in (False, True):
-        what = ("clean, golden on, loop filter on" if golden
-                else "grainy, golden off")
-        payloads, recons, n_golden, deblock = run(dev_name, golden)
-        if deblock != golden or bool(n_golden) != golden:
-            fail(f"conformance ({what}): deblock {deblock}, GOLDEN blocks "
-                 f"{n_golden}")
+    what = {"grainy": "grainy, golden off",
+            "clean": "clean, golden on, loop filter on",
+            "default": "grainy, default config: golden, CDEF and LR on"}
+    for kind in ("grainy", "clean", "default"):
+        payloads, recons, n_golden, deblock, cdefs, lr_on = run(dev_name,
+                                                                kind)
+        if deblock != (kind == "clean") or \
+                bool(n_golden) != (kind == "clean"):
+            fail(f"conformance ({what[kind]}): deblock {deblock}, GOLDEN "
+                 f"blocks {n_golden}")
+        if (kind == "default") != (any(map(any, cdefs)) and lr_on > 0):
+            fail(f"conformance ({what[kind]}): CDEF strengths {cdefs}, "
+                 f"{lr_on} restoration units on")
         dec = decoder.decode_stream(payloads)
         if len(dec) != len(payloads):
             fail(f"spec decoder returned {len(dec)} frames")
@@ -841,16 +973,17 @@ def phase_conform(dev_name: str):
                 hh, ww = d[pl].shape
                 if not np.array_equal(np.asarray(d[pl], np.int64),
                                       r[pl][:hh, :ww].astype(np.int64)):
-                    fail(f"conformance ({what}): decoded frame {i} plane "
-                         f"{pl} != port recon")
-        log(f"conformance 256x144 ({what}): the port's spec decoder "
+                    fail(f"conformance ({what[kind]}): decoded frame {i} "
+                         f"plane {pl} != port recon")
+        log(f"conformance 256x144 ({what[kind]}): the port's spec decoder "
             "(av1tpu_torch.specav1.decoder) reproduces the port's recon "
-            f"exactly, {len(payloads)} frames, {n_golden} GOLDEN blocks")
-        if run("cpu", golden)[0] != payloads:
-            fail(f"conformance ({what}): CPU and GPU runs of the port gave "
-                 "different streams")
-        log(f"conformance 256x144 ({what}): CPU plain path and GPU kernels "
-            "give byte-identical streams")
+            f"exactly, {len(payloads)} frames, {n_golden} GOLDEN blocks, "
+            f"CDEF strengths {cdefs}, {lr_on} restoration units on")
+        if run("cpu", kind)[0] != payloads:
+            fail(f"conformance ({what[kind]}): CPU and GPU runs of the port "
+                 "gave different streams")
+        log(f"conformance 256x144 ({what[kind]}): CPU plain path and GPU "
+            "kernels give byte-identical streams")
 
 
 def kernel_entry(name, source, replaces, counts, err, rows):

@@ -1,14 +1,16 @@
-"""PyTorch port (av1tpu_torch) vs the JAX package: a two-reference,
-loop-filtered GOP through both engines.
+"""PyTorch port (av1tpu_torch) vs the JAX package: a two-reference GOP
+through both engines in the daemon's default in-loop filter chain.
 
-A "flash" GOP of clean 128x128 frames with the frame types pinned: key
+A "flash" GOP of clean 128x144 frames with the frame types pinned: key
 A, inter B (another scene), inter A again.  The source is clean and
-128 % 32 == 0, so the GOP's deblocking decision is on; LAST (B's recon)
-is useless for the third frame while GOLDEN (A's filtered recon) is
-nearly it.  The port's bytes must equal ``SpecTpuEngine``'s; both
-decoders must reproduce the port's reconstruction (the JAX package's
-takes its vectorized uniform-grid filter where no block split, the
-port's always the grid-driven one).
+144 % 32 == 16 with 128 % 16 == 0, so the GOP's deblocking decision is
+on over the 16-px strip geometry, and CDEF and LR run after it (the
+engines' defaults apart from chunking): the chain deblock -> CDEF -> LR,
+with the strip rows in CDEF's skip grid.  LAST (B's recon) is useless
+for the third frame while GOLDEN (A's filtered recon) is nearly it.
+The port's bytes must equal ``SpecTpuEngine``'s; the port's decoder,
+the JAX package's and libaom must each reproduce the port's
+reconstruction.
 """
 
 import functools
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from av1tpu.conformance import aomcodec
 from av1tpu.config import TpuEncoderConfig
 from av1tpu.spec_engine import SpecTpuEngine
 from av1tpu.specav1 import decoder as j_decoder
@@ -26,20 +29,22 @@ from av1tpu_torch.specav1 import decoder
 from av1tpu_torch.utils.cleansrc import clean_frame
 
 torch.set_num_threads(1)
-W, H = 128, 128
+W, H = 128, 144
 
 
 def _encode(eng, frames):
-    """(payloads, recons, GOLDEN blocks per inter frame, engine)."""
+    """(payloads, recons, GOLDEN blocks per inter frame, engine, CDEF
+    strengths per frame)."""
     eng.start_stream()
-    payloads, recons, n_gold = [], [], []
+    payloads, recons, n_gold, cdefs = [], [], [], []
     for i, f in enumerate(frames):
         pend = eng._submit(f, 96, is_key=(i == 0))
         recons.append(eng._ref)
         if i:
             n_gold.append(int(np.asarray(pend[11][14]).sum()))
+        cdefs.append(np.asarray(pend[11][16 if i == 0 else 9]).tolist())
         payloads.append(bytes(eng._finalize(pend)[0]))
-    return payloads, recons, n_gold, eng
+    return payloads, recons, n_gold, eng, cdefs
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,7 +54,7 @@ def _gop():
               clean_frame(W, H, 1, 0)]
     out = {}
     for golden in (True, False):
-        cfg = dict(chunk=1, golden=golden, cdef=False, lr=False)
+        cfg = dict(chunk=1, golden=golden)
         out["jax", golden] = _encode(SpecTpuEngine(TpuEncoderConfig(**cfg)),
                                      frames)
         out["port", golden] = _encode(
@@ -61,12 +66,14 @@ def _gop():
 @pytest.mark.parametrize("frame", [0, 1, 2])
 @pytest.mark.parametrize("golden", [True, False])
 def test_deblock_gop_matches_jax_engine(golden, frame):
-    """Frame by frame: the same GOLDEN choices, the same filtered
-    recons, the same bytes."""
-    jp, jr, jg, je = _gop()["jax", golden]
-    tp, tr, tg, te = _gop()["port", golden]
+    """Frame by frame: the same GOLDEN choices, the same CDEF strengths,
+    the same filtered recons, the same bytes."""
+    jp, jr, jg, je, jc = _gop()["jax", golden]
+    tp, tr, tg, te, tc = _gop()["port", golden]
     assert je._gop_deblock and te._gop_deblock
+    assert te._cdef and te._lr and je._cdef and je._lr
     assert len(tp) == len(jp) == 3 and len(tg) == len(jg) == 2
+    assert tc[frame] == jc[frame]
     if frame:
         assert tg[frame - 1] == jg[frame - 1]
     for pl in range(3):
@@ -81,8 +88,9 @@ def _decoded(dec):
 
 
 @pytest.mark.parametrize("frame", [0, 1, 2])
-@pytest.mark.parametrize("dec", [decoder, j_decoder],
-                         ids=["port-decoder", "jax-package-decoder"])
+@pytest.mark.parametrize("dec", [decoder, j_decoder, aomcodec],
+                         ids=["port-decoder", "jax-package-decoder",
+                              "libaom"])
 def test_golden_deblock_gop_decodes_to_port_recon(dec, frame):
     recons = _gop()["port", True][1]
     frames_dec = _decoded(dec)
@@ -97,7 +105,8 @@ def test_golden_deblock_gop_decodes_to_port_recon(dec, frame):
 def test_golden_flash_back_frame_is_smaller():
     """Frame 3 predicts from GOLDEN and is under half its size in the
     one-reference encode of the same GOP."""
-    payloads, _, n_gold, _ = _gop()["port", True]
+    payloads, _, n_gold, _, cdefs = _gop()["port", True]
+    assert any(map(any, cdefs)), cdefs
     assert n_gold[1] > 8, n_gold
     assert _gop()["port", False][2] == [0, 0]
     assert len(payloads[2]) < len(_gop()["port", False][0][2]) // 2

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from av1tpu.specav1 import cdef as j_cdef
 from av1tpu.specav1 import cdfs as j_cdfs
 from av1tpu.specav1 import decoder as j_decoder
 from av1tpu.specav1 import inter_recon as j_inter_recon
@@ -22,8 +23,8 @@ from av1tpu.specav1 import recon as j_recon
 from av1tpu.specav1 import writer as j_writer
 from av1tpu_torch import spec_engine
 from av1tpu_torch.config import TpuEncoderConfig
-from av1tpu_torch.specav1 import (cdfs, decoder, headers, inter_recon, native,
-                                  obu, recon, writer)
+from av1tpu_torch.specav1 import (cdef, cdfs, decoder, headers, inter_recon,
+                                  native, obu, recon, writer)
 from av1tpu_torch.utils import testsrc
 from av1tpu_torch.utils.cleansrc import clean_frame
 
@@ -42,10 +43,10 @@ def _grainy(w, h, n, seed):
     return out
 
 
-def _port_encode(w, h, n, seed, frames=None, golden=False):
+def _port_encode(w, h, n, seed, frames=None, golden=False, filters=False):
     """(engine, pending frames, recons) of a key + P CPU encode by the
-    port; the first frame is the key."""
-    cfg = dict(CFG, golden=golden)
+    port; the first frame is the key.  filters: CDEF and LR on."""
+    cfg = dict(CFG, golden=golden, cdef=filters, lr=filters)
     eng = spec_engine.SpecTorchEngine(TpuEncoderConfig(**cfg), device="cpu")
     eng.start_stream()
     pend, recons = [], []
@@ -167,26 +168,29 @@ def test_decoder_matches_jax_package_decoder_deblocked(w, h, gop):
 
 def test_decoder_refuses_deblocked_frame():
     """The decoder used to refuse a frame header with the loop filter
-    on; now it parses the levels and decodes such a frame, and a header
-    that turns CDEF on is what it still refuses, before any tile is
-    read."""
+    on, and then one with CDEF on; now it parses the levels and the CDEF
+    strengths and decodes a keyframe with deblocking, CDEF and LR on to
+    the encoder's recon, every plane."""
     eng, pend, recons = _port_encode(64, 64, 1, 0,
-                                     frames=[clean_frame(64, 64, 0)])
+                                     frames=[clean_frame(64, 64, 0)],
+                                     filters=True)
     tu = eng._finalize(pend[0])[0]
     (frame,) = decoder.decode_stream([tu])
     obus = list(obu.parse_obus(tu))
-    hdr = headers.parse_frame_header(
-        obus[1].payload, headers.parse_sequence_header(obus[0].payload))
+    seq = headers.parse_sequence_header(obus[0].payload)
+    hdr = headers.parse_frame_header(obus[1].payload, seq)
     assert all(hdr.lf.level) and tuple(hdr.lf.level) == (pend[0][14],) * 4
-    np.testing.assert_array_equal(frame[0], recons[0][0][:64, :64])
-    seq = j_writer.write_sequence_header(64, 64, enable_cdef=True)
-    hdr = j_writer.write_key_frame_header(64, 64, 96, lf_level=8,
-                                          lf_level_uv=4,
-                                          cdef=(3, 2, 1, 2, 1))
-    hdr.byte_align()
-    tu = seq + obu.make_obu(obu.OBU_FRAME, hdr.tobytes())
-    with pytest.raises(NotImplementedError, match="CDEF"):
-        decoder.decode_stream([tu])
+    assert seq.enable_cdef and seq.enable_restoration
+    cdefs = pend[0][11][16].tolist()
+    assert any(cdefs) and hdr.cdef.bits == 0
+    assert [hdr.cdef.y_pri[0], hdr.cdef.y_sec[0], hdr.cdef.uv_pri[0],
+            hdr.cdef.uv_sec[0]] == cdefs
+    assert hdr.cdef.damping == pend[0][16] == spec_engine.cdef_damping(
+        hdr.base_q_idx)
+    assert list(hdr.lr.frame_restoration_type) == [1, 0, 0]
+    for pl in range(3):
+        hh, ww = frame[pl].shape
+        np.testing.assert_array_equal(frame[pl], recons[0][pl][:hh, :ww])
 
 
 @pytest.mark.parametrize("w,h,q,bd", [(64, 64, 96, 8), (1920, 1080, 60, 8),
@@ -196,6 +200,9 @@ def test_header_writers_match_jax_package(w, h, q, bd):
     assert writer.write_sequence_header(w, h, bit_depth=bd) == \
         j_writer.write_sequence_header(w, h, bit_depth=bd)
     kw = dict(color_primaries=9, transfer=16, matrix=9)
+    assert writer.write_sequence_header(w, h, bit_depth=bd, **kw) == \
+        j_writer.write_sequence_header(w, h, bit_depth=bd, **kw)
+    kw = dict(enable_cdef=True, enable_restoration=True)
     assert writer.write_sequence_header(w, h, bit_depth=bd, **kw) == \
         j_writer.write_sequence_header(w, h, bit_depth=bd, **kw)
     for trl2 in (0, 2):
@@ -228,11 +235,48 @@ def test_header_writers_match_jax_package(w, h, q, bd):
                 x.byte_align()
             assert a.tobytes() == b.tobytes()
             assert c.tobytes() == d.tobytes() != plain.tobytes()
+        # CDEF strengths (sec 4 codes as 3) and luma WIENER restoration
+        for cd in ((3, 0, 0, 0, 0), (4, 8, 2, 1, 0), (6, 12, 4, 8, 2)):
+            fl = dict(cdef=cd, lr_types=(1, 0, 0), tile_rows_log2=trl2,
+                      lf_level=9, lf_level_uv=9)
+            a = writer.write_key_frame_header(w, h, q, **fl)
+            b = j_writer.write_key_frame_header(w, h, q, **fl)
+            c = writer.write_inter_frame_header(w, h, q, order_hint=3, **fl)
+            d = j_writer.write_inter_frame_header(w, h, q, order_hint=3,
+                                                  **fl)
+            for x in (a, b, c, d):
+                x.byte_align()
+            assert a.tobytes() == b.tobytes()
+            assert c.tobytes() == d.tobytes()
         assert writer.tile_row_spans(h, trl2) == \
             j_writer.tile_row_spans(h, trl2)
     tiles = [b"\x01\x02", b"\x03", b"\x04\x05\x06"]
     assert writer.assemble_tile_group(tiles) == \
         j_writer.assemble_tile_group(tiles)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_cdef_copy_matches_jax_package(bd):
+    """The port's numpy CDEF (the decoder's) against its original: the
+    tables and cdef_frame's planes at several strength pairs."""
+    for name in ("DIRECTIONS", "PRI_TAPS", "SEC_TAPS", "DIV_TABLE"):
+        np.testing.assert_array_equal(getattr(cdef, name),
+                                      getattr(j_cdef, name))
+    assert cdef.CDEF_VERY_LARGE == j_cdef.CDEF_VERY_LARGE
+    rng = np.random.default_rng(bd)
+    mx = (1 << bd) - 1
+    base = np.kron(rng.integers(0, mx + 1, (12, 16)), np.ones((8, 8), int))
+    y = np.clip(base + rng.integers(-20, 21, base.shape), 0, mx)
+    u = np.clip(base[::2, ::2] + rng.integers(-20, 21, (48, 64)), 0, mx)
+    v = np.clip(u + rng.integers(-9, 10, u.shape), 0, mx)
+    skips4 = rng.random((24, 32)) < 0.3
+    for st in ((1, 0, 1, 0), (4, 2, 2, 1), (12, 4, 8, 2), (0, 2, 0, 1)):
+        kw = dict(y_pri=st[0], y_sec=st[1], uv_pri=st[2], uv_sec=st[3],
+                  damping=4, bit_depth=bd, th=88, tw=120)
+        got = cdef.cdef_frame((y, u, v), skips4, **kw)
+        want = j_cdef.cdef_frame((y, u, v), skips4, **kw)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_tables_match_jax_package():

@@ -174,51 +174,83 @@ def test_port_source_imports_no_av1tpu(path):
 
 
 def test_engine_rejects_unported_config():
-    """golden=True is accepted; what is still missing raises."""
+    """golden, CDEF and LR are accepted, alone and together: the
+    daemon's defaults but for chunking construct and encode, and the
+    frame header carries the searched CDEF strengths.  What is still
+    missing raises: chunking, more than one device, and so the defaults
+    themselves (chunk=8)."""
     from av1tpu_torch.config import TpuEncoderConfig
     from av1tpu_torch.spec_engine import SpecTorchEngine
+    from av1tpu_torch.specav1 import headers, obu
     ok = dict(chunk=1, golden=True, cdef=False, lr=False)
     eng = SpecTorchEngine(TpuEncoderConfig(**ok), device="cpu")
-    assert eng._golden
+    assert eng._golden and not eng._cdef and not eng._lr
     assert not SpecTorchEngine(TpuEncoderConfig(**{**ok, "golden": False}),
                                device="cpu")._golden
-    for kw, what in ((dict(chunk=4), "chunk"), (dict(cdef=True), "CDEF"),
-                     (dict(lr=True), "restoration"),
+    for kw in (dict(cdef=True), dict(lr=True)):
+        e = SpecTorchEngine(TpuEncoderConfig(**{**ok, **kw}), device="cpu")
+        assert (e._cdef, e._lr) == (kw.get("cdef", False),
+                                    kw.get("lr", False))
+    eng = SpecTorchEngine(TpuEncoderConfig(chunk=1), device="cpu")
+    assert eng._golden and eng._cdef and eng._lr
+    rng = np.random.default_rng(3)
+    f = testsrc.testsrc2(64, 64, 0)
+    f.y[:] = np.clip(f.y.astype(np.int32) + rng.integers(-6, 7, f.y.shape),
+                     0, 255)
+    eng.start_stream()
+    pend = eng._submit(f, 96, is_key=True)
+    tu = eng._finalize(pend)[0]
+    obus = list(obu.parse_obus(tu))
+    seq = headers.parse_sequence_header(obus[0].payload)
+    hdr = headers.parse_frame_header(obus[1].payload, seq)
+    c = hdr.cdef
+    assert seq.enable_cdef and seq.enable_restoration
+    assert [c.y_pri[0], c.y_sec[0], c.uv_pri[0], c.uv_sec[0]] == \
+        pend[11][16].tolist()
+    for kw, what in ((dict(chunk=4), "chunk"),
                      (dict(num_chips=2), "num_chips")):
         with pytest.raises(NotImplementedError, match=what):
             SpecTorchEngine(TpuEncoderConfig(**{**ok, **kw}), device="cpu")
-    # the defaults ask for all of it
+    # the defaults ask for chunked dispatch
     with pytest.raises(NotImplementedError, match="chunk"):
         SpecTorchEngine(TpuEncoderConfig(), device="cpu")
 
 
 def test_engine_refuses_deblocking_gop():
-    """The engine used to refuse a GOP whose deblocking decision is on;
-    now a flat, clean source encodes with the loop filter (levels in the
-    frame header, a filtered reference), and the same source with CDEF
-    asked for is what it still refuses."""
+    """The engine used to refuse a GOP whose deblocking decision is on,
+    and then CDEF; now a flat, clean source encodes with the loop filter
+    (levels in the frame header, a filtered reference), and with CDEF
+    and LR on after it (the searched strengths and luma WIENER
+    restoration in the header), and decodes to the recon either way."""
     from av1tpu_torch.config import TpuEncoderConfig
     from av1tpu_torch.spec_engine import SpecTorchEngine, lf_levels
     from av1tpu_torch.specav1 import decoder, headers, obu
-    cfg = dict(chunk=1, golden=False, cdef=False, lr=False)
-    eng = SpecTorchEngine(TpuEncoderConfig(**cfg), device="cpu")
     flat = testsrc.testsrc2(64, 64, 0)
     flat.y[:] = 128
-    tu = eng.encode_smoke_frame(flat)
-    assert eng._gop_deblock
-    obus = list(obu.parse_obus(tu))
-    seq = headers.parse_sequence_header(obus[0].payload)
-    hdr = headers.parse_frame_header(obus[1].payload, seq)
     lvl = lf_levels(96, 8)[0]
-    assert lvl > 0 and tuple(hdr.lf.level) == (lvl,) * 4
-    (dec,) = decoder.decode_stream([tu])
-    for d, r in zip(dec, eng._ref):
-        np.testing.assert_array_equal(d, r[:d.shape[0], :d.shape[1]])
+    for filters in (False, True):
+        cfg = dict(chunk=1, golden=False, cdef=filters, lr=filters)
+        eng = SpecTorchEngine(TpuEncoderConfig(**cfg), device="cpu")
+        eng.start_stream()
+        pend = eng._submit(flat, 96, is_key=True)
+        tu = eng._finalize(pend)[0]
+        assert eng._gop_deblock
+        obus = list(obu.parse_obus(tu))
+        seq = headers.parse_sequence_header(obus[0].payload)
+        hdr = headers.parse_frame_header(obus[1].payload, seq)
+        assert lvl > 0 and tuple(hdr.lf.level) == (lvl,) * 4
+        assert bool(seq.enable_cdef) == bool(seq.enable_restoration) == \
+            filters
+        if filters:
+            c = hdr.cdef
+            assert [c.y_pri[0], c.y_sec[0], c.uv_pri[0], c.uv_sec[0]] == \
+                pend[11][16].tolist()
+            assert list(hdr.lr.frame_restoration_type) == [1, 0, 0]
+        (dec,) = decoder.decode_stream([tu])
+        for d, r in zip(dec, eng._ref):
+            np.testing.assert_array_equal(d, r[:d.shape[0], :d.shape[1]])
     # 1080 % 32 == 24: a clean 1080p source never filters
     assert 1080 % 32 == 24 and 720 % 32 == 16 and 2160 % 32 == 16
-    with pytest.raises(NotImplementedError, match="CDEF"):
-        SpecTorchEngine(TpuEncoderConfig(**{**cfg, "cdef": True}),
-                        device="cpu")
 
 
 @pytest.mark.parametrize("w,h,want", [(64, 64, True), (128, 80, True),
