@@ -3,10 +3,12 @@
 Copied from ``av1tpu/engine_tpu.py`` (a module that imports JAX at
 module scope): the GOP/keyframe decisions (``_scene_cut``,
 ``_decide_key``, ``_classify_frame``, ``_gop_predictable``), plane
-padding (``_pad_planes`` with ``legacy.core.intra_frame.pad_plane``)
-and ``encode_stream`` on its single-frame dispatch path
-(``chunk == 1``), the golden-aware scene cut included.  The port keeps
-this copy: it imports nothing of ``av1tpu``.
+padding (``_pad_planes`` with ``legacy.core.intra_frame.pad_plane``),
+the entropy worker pool (``_entropy_pool``) and ``encode_stream`` with
+its chunk buffer: runs of ``cfg.chunk`` P-frames go to the device as one
+dispatch, keyframes, flashes and sub-chunk remainders one frame at a
+time; the golden-aware scene cut included.  The port keeps this copy:
+it imports nothing of ``av1tpu``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,20 @@ from av1tpu_torch.config import TpuEncoderConfig
 from av1tpu_torch.encoder import ratectrl
 from av1tpu_torch.utils.testsrc import Frame
 
+_pool = None
+
+
+def _entropy_pool():
+    """Shared worker pool for per-frame host entropy coding (the C++
+    range coder releases the GIL; frames carry no shared entropy
+    state)."""
+    global _pool
+    if _pool is None:
+        from concurrent.futures import ThreadPoolExecutor
+        _pool = ThreadPoolExecutor(max_workers=4,
+                                   thread_name_prefix="av1torch-ec")
+    return _pool
+
 
 def pad_plane(plane: np.ndarray, block: int) -> np.ndarray:
     """Edge-replicate pad to a multiple of ``block``.  Copied from
@@ -33,8 +49,10 @@ def pad_plane(plane: np.ndarray, block: int) -> np.ndarray:
 
 class TorchEngine:
     """GOP-level host logic shared by the port's engines.  Subclasses
-    provide ``_submit`` (dispatch one frame to the device) and
-    ``_finalize`` (materialize and entropy-code it)."""
+    provide ``_submit`` (dispatch one frame to the device),
+    ``_submit_chunk`` (K P-frames as one dispatch), ``_chunk_cap`` (the
+    largest K for a frame size), and ``_finalize`` / ``_finalize_chunk``
+    (materialize and entropy-code a dispatch)."""
 
     def __init__(self, cfg: Optional[TpuEncoderConfig] = None):
         self.cfg = cfg or TpuEncoderConfig()
@@ -189,22 +207,48 @@ class TorchEngine:
         return self.encode_keyframe(frame, qindex=96)
 
     def encode_stream(self, frames, qindex):
-        """Pipelined GOP encode over an iterable of Frames, one frame per
-        dispatch.  ``qindex`` is an int or a ratectrl controller.  Yields
-        (payload, is_keyframe) in order; up to two dispatches are in
-        flight while the host entropy-codes the oldest."""
+        """Pipelined GOP encode over an iterable of Frames.  ``qindex``
+        is an int or a ratectrl controller.  Yields (payload,
+        is_keyframe) in order; up to two dispatches are in flight while
+        the host entropy-codes the oldest.  Runs of cfg.chunk
+        consecutive P-frames go out as one chunk dispatch; keyframes,
+        flashes and sub-chunk remainders one frame at a time."""
         rate = qindex if hasattr(qindex, "qindex_for") else None
+        K = max(1, int(getattr(self.cfg, "chunk", 1)))
         frames = iter(frames)
         first = next(frames, None)
         if first is None:
             return
+        K = min(K, self._chunk_cap(first.width, first.height,
+                                   first.bit_depth))
         frames = itertools.chain([first], frames)
-        pending = deque()
+        pending = deque()  # entries: ("single", rec) | ("chunk", rec)
         depth = 2
         idx = 0
+        buf = []  # buffered (frame, q) awaiting a full chunk
+
+        def flush_buf():
+            if not buf:
+                return
+            if len(buf) == K and K > 1:
+                pending.append(("chunk", self._submit_chunk(
+                    [f for f, _ in buf], [q for _, q in buf])))
+            else:
+                for f, q in buf:
+                    pending.append(("single",
+                                    self._submit(f, q, is_key=False)))
+            buf.clear()
+
+        def finalize_one():
+            kind, rec = pending.popleft()
+            if kind == "single":
+                return [self._finalize(rec)]
+            return self._finalize_chunk(rec)
+
         fbytes = max(1, first.width * first.height *
                      (2 if first.bit_depth > 8 else 1) * 3 // 2)
-        L = max(2, min(16, 256_000_000 // fbytes))
+        L = max(2, min(int(getattr(self.cfg, "lookahead", 16)),
+                       max(2, 256_000_000 // fbytes)))
         win = deque()
         wcs = deque()
         _ds = [None]
@@ -218,12 +262,6 @@ class TorchEngine:
                     frame_complexity(f.y, _ds[0])
                 win.append(f)
                 wcs.append(cst)
-
-        def finalize_one():
-            payload, is_key = self._finalize(pending.popleft())
-            if rate:
-                rate.record(len(payload) * 8)
-            return payload, is_key
 
         _refill()
         while win:
@@ -243,6 +281,7 @@ class TorchEngine:
             if kind != "key" and self._deep_gop:
                 q = min(255, q + 16)
             if kind == "key":
+                flush_buf()  # keep the order: buffered P-frames first
                 # keyframe quality boost (deeper for predictable GOPs)
                 self._deep_gop = (nxt is not None
                                   and self._gop_predictable(frame, nxt))
@@ -250,13 +289,28 @@ class TorchEngine:
                     kq = max(0, q - min(88, max(8, (3 * q) // 4)))
                 else:
                     kq = max(0, q - min(48, max(8, q // 3)))
-                pending.append(self._submit(frame, kq, is_key=True))
+                pending.append(("single",
+                                self._submit(frame, kq, is_key=True)))
             elif kind == "flash":
-                pending.append(self._submit(frame, q, is_key=False,
-                                            refresh=False))
+                flush_buf()
+                pending.append(("single",
+                                self._submit(frame, q, is_key=False,
+                                             refresh=False)))
+            elif K > 1:
+                buf.append((frame, q))
+                if len(buf) == K:
+                    flush_buf()
             else:
-                pending.append(self._submit(frame, q, is_key=False))
+                pending.append(("single",
+                                self._submit(frame, q, is_key=False)))
             while len(pending) > depth:
-                yield finalize_one()
+                for payload, is_key in finalize_one():
+                    if rate:
+                        rate.record(len(payload) * 8)
+                    yield payload, is_key
+        flush_buf()
         while pending:
-            yield finalize_one()
+            for payload, is_key in finalize_one():
+                if rate:
+                    rate.record(len(payload) * 8)
+                yield payload, is_key

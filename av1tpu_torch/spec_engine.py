@@ -1,24 +1,33 @@
 """Spec-AV1 engine of the PyTorch port: ``SpecTorchEngine``.
 
-The port of ``av1tpu/spec_engine.py``'s single-device, single-frame
-pipeline: keyframes from ``specav1.torch_intra``, P-frames from
-``specav1.torch_inter``, sparse level packing on the device, and the
-port's own native C++ tile writer plus header/OBU writer on the host.  The
-output is standard AV1 in the same low-overhead framing as the JAX
-engine (keyframes carry [sequence header OBU][frame OBU]).
+The port of ``av1tpu/spec_engine.py``'s single-device pipeline:
+keyframes from ``specav1.torch_intra``, P-frames from
+``specav1.torch_inter``, one at a time or K at a time as a chunk
+(``encode_chunk``: one packed upload, K frame encodes, one sparse pack),
+sparse level packing on the device, and the port's own native C++ tile
+writer plus header/OBU writer on the host.  The output is standard AV1
+in the same low-overhead framing as the JAX engine (keyframes carry
+[sequence header OBU][frame OBU]).
 
-Supported configuration: the daemon's default except chunking and
-multiple devices: ``chunk=1``, one device, 8- or 10-bit, ``golden``,
-``cdef`` and ``lr`` each on or off.  With ``golden`` the GOP keyframe's
-filtered reconstruction stays in reference slot 1 and every P-frame
-block picks LAST or GOLDEN.  Deblocking is decided per GOP exactly as
-the JAX engine does: on for a clean source (noise floor <= 1) whose
-coded height is a multiple of 32, or 16 past one with a width that is a
-multiple of 16 (every 720p and 2160p file; never 1080p, where
-1080 % 32 == 24), at a level derived from each frame's qindex.  With
-``cdef`` every frame carries its searched CDEF strengths (damping from
-the qindex), and with ``lr`` the luma plane's per-unit Wiener choices
-and taps (frame restoration types (WIENER, NONE, NONE), 256-px units).
+Supported configuration: the daemon's default (``TpuEncoderConfig()``:
+``chunk=8``, ``delta_upload``, ``golden``, ``cdef`` and ``lr`` on) and
+each of those settings changed, on one device, 8- or 10-bit.  With
+``golden`` the GOP keyframe's filtered reconstruction stays in
+reference slot 1 and every P-frame block picks LAST or GOLDEN.
+Deblocking is decided per GOP exactly as the JAX engine does: on for a
+clean source (noise floor <= 1) whose coded height is a multiple of 32,
+or 16 past one with a width that is a multiple of 16 (every 720p and
+2160p file; never 1080p, where 1080 % 32 == 24), at a level derived from
+each frame's qindex.  With ``cdef`` every frame carries its searched
+CDEF strengths (damping from the qindex), and with ``lr`` the luma
+plane's per-unit Wiener choices and taps (frame restoration types
+(WIENER, NONE, NONE), 256-px units).
+
+A chunk is packed, uploaded and issued on an ordered one-worker
+dispatch thread while the caller's thread entropy-codes older
+dispatches; the worker issues onto the stream that was current on the
+submitting thread, so stream order keeps every later reader behind the
+chunk's work.
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ import torch
 
 from av1tpu_torch import device as D
 from av1tpu_torch.config import TpuEncoderConfig
-from av1tpu_torch.engine import TorchEngine
+from av1tpu_torch.encoder import io_pack
+from av1tpu_torch.engine import TorchEngine, _entropy_pool
 from av1tpu_torch.specav1 import lr as _NL
 from av1tpu_torch.specav1 import native
 from av1tpu_torch.specav1 import obu as obu_mod
@@ -194,11 +204,17 @@ def packbits(mask: torch.Tensor) -> torch.Tensor:
 
 
 def pack_outputs(lv_y, lv_u, lv_v, grids, cap: int):
-    """Sparse level packing (port of spec_engine._pack_outputs): the
-    nonzero mask as packed bits, the nonzero values compacted in
-    position order into int16[cap] by a cumsum, their count, and the
-    int32 grids."""
-    flat = torch.cat([lv_y.reshape(-1), lv_u.reshape(-1), lv_v.reshape(-1)])
+    """Sparse level packing (port of spec_engine._pack_outputs and of
+    the chunk program's pack): the nonzero mask as packed bits, the
+    nonzero values compacted in position order into int16[cap] by a
+    cumsum, their count, and the int32 grids.  lv_*: one frame's level
+    planes, or sequences of K frames' planes, flattened frame-major
+    (y|u|v of frame 0, then of frame 1, ...) so that each frame's slice
+    is a contiguous run."""
+    if isinstance(lv_y, torch.Tensor):
+        lv_y, lv_u, lv_v = (lv_y,), (lv_u,), (lv_v,)
+    flat = torch.cat([p.reshape(-1) for f in zip(lv_y, lv_u, lv_v)
+                      for p in f])
     mask = flat != 0
     count = mask.sum(dtype=I32)
     idx = torch.cumsum(mask.to(I32), 0, dtype=I32) - 1
@@ -207,6 +223,94 @@ def pack_outputs(lv_y, lv_u, lv_v, grids, cap: int):
     vals = torch.zeros((cap + 1,), dtype=torch.int16, device=flat.device)
     vals.scatter_(0, slot, flat.clamp(-32768, 32767).to(torch.int16))
     return packbits(mask), vals[:cap], count, grids.to(I32)
+
+
+# the P-frame outputs that travel as grids, in the order _finalize and
+# _finalize_chunk slice them: mv8, skip, strip_skip, cdefs, lr_choice,
+# split, mv16, skip16, refsel, lr_taps
+_INTER_GRIDS = (0, 1, 8, 9, 10, 11, 12, 13, 14, 15)
+
+
+def _inter_grids(outs) -> torch.Tensor:
+    """The grids of one or more P-frames' outputs, field-major across
+    frames (each field of every frame, then the next field)."""
+    return torch.cat([o[i].reshape(-1) for i in _INTER_GRIDS for o in outs])
+
+
+def to_device(arr: np.ndarray, dev) -> torch.Tensor:
+    """A host array on ``dev``: through pinned host memory and an
+    asynchronous copy on the current stream when ``dev`` is CUDA."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def upload_chunk_raw(planes, dev) -> torch.Tensor:
+    """K frames' padded (y, u, v) planes as one flat upload (port of the
+    raw chunk upload): all Y frames, then all U, then all V; uint8 at 8
+    bits, int16 holding the samples above (torch's uint16 coverage is
+    thin).  On CUDA the buffer is filled in pinned host memory and
+    copied asynchronously."""
+    dt = torch.uint8 if planes[0][0].dtype == np.uint8 else torch.int16
+    n = sum(p[pi].size for p in planes for pi in range(3))
+    host = torch.empty(n, dtype=dt, pin_memory=dev.type == "cuda")
+    view = host.numpy()
+    off = 0
+    for pi in range(3):
+        for p in planes:
+            view[off:off + p[pi].size] = p[pi].reshape(-1)
+            off += p[pi].size
+    return host.to(dev, non_blocking=True)
+
+
+def unpack_planes_chunk(flat: torch.Tensor, k: int, ph: int, pw: int):
+    """Views of one raw chunk upload (port of
+    engine_tpu._unpack_planes_chunk): (k, ph, pw) and 2 x (k, ph/2,
+    pw/2)."""
+    ny = k * ph * pw
+    nc = k * (ph // 2) * (pw // 2)
+    return (flat[:ny].reshape(k, ph, pw),
+            flat[ny:ny + nc].reshape(k, ph // 2, pw // 2),
+            flat[ny + nc:ny + 2 * nc].reshape(k, ph // 2, pw // 2))
+
+
+def encode_chunk(src, refs, qindexes, lfys, lfuvs, damps, *, k: int,
+                 ph: int, pw: int, bit_depth: int, th: int, tw: int,
+                 cap: int, deblock: bool = False, qround: float = 0.70,
+                 cdef: bool = False, lr: bool = False, gld=None):
+    """K consecutive P-frames as one dispatch (port of
+    spec_engine._encode_chunk; a Python loop stands in for lax.scan).
+
+    src: the raw flat upload, or the packed one as (nib, exc_pos,
+    exc_val, modes, base_y, base_u, base_v) for io_pack.unpack_chunk;
+    refs: the LAST reconstruction the first frame predicts from, each
+    frame's recon the next one's; qindexes, lfys, lfuvs, damps: per-frame
+    ints; gld: the GOLDEN planes, the same for every frame.  Returns
+    (the last recon, the packed outputs of pack_outputs over the whole
+    chunk, the per-frame level planes (y, u, v lists, read on capacity
+    overflow), the chunk's last source planes: the next chunk's delta
+    base)."""
+    if isinstance(src, tuple):
+        ys, us, vs = io_pack.unpack_chunk(*src, k, ph, pw,
+                                          bit_depth=bit_depth)
+    else:
+        ys, us, vs = unpack_planes_chunk(src, k, ph, pw)
+    carry = tuple(refs)
+    lvs = ([], [], [])
+    kept = []
+    for i in range(k):
+        out = torch_inter.encode_frame(
+            ys[i], us[i], vs[i], *carry, int(qindexes[i]), bit_depth,
+            th=th, tw=tw, qround=qround, gld=gld, lf_y=int(lfys[i]),
+            lf_uv=int(lfuvs[i]), deblock=deblock, cdef=cdef,
+            cdef_damping=int(damps[i]), lr=lr)
+        carry = out[5:8]
+        for j in range(3):
+            lvs[j].append(out[2 + j])
+        kept.append({f: out[f] for f in _INTER_GRIDS})
+    pk = pack_outputs(*lvs, _inter_grids(kept), cap)
+    return carry, pk, lvs, (ys[-1].clone(), us[-1].clone(), vs[-1].clone())
 
 
 def state_from_numpy(ref_y, ref_u, ref_v, device) -> tuple:
@@ -225,6 +329,14 @@ def _upload(plane: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(plane, dt)).to(dev)
 
 
+def _base_fits(tri, ph: int, pw: int):
+    """The delta-upload base planes when they have the chunk's padded
+    shape, else None (port of _grow's width check: the host and device
+    bases must match exactly for the mod-2^bd delta chain; the striped
+    padding branch runs only on several devices)."""
+    return tri if tuple(tri[0].shape) == (ph, pw) else None
+
+
 class SpecTorchEngine(TorchEngine):
     """Standard-AV1 engine on PyTorch (see module docstring)."""
 
@@ -234,8 +346,6 @@ class SpecTorchEngine(TorchEngine):
         self.device = D.resolve_device(device)
         c = self.cfg
         missing = []
-        if c.chunk > 1:
-            missing.append("chunked dispatch (chunk > 1)")
         if c.num_chips > 1:
             missing.append("multi-device stripes (num_chips > 1)")
         if c.bitstream != "spec":
@@ -244,24 +354,60 @@ class SpecTorchEngine(TorchEngine):
             raise NotImplementedError(
                 "not ported to av1tpu_torch yet: " + ", ".join(missing))
         self._order_hint = 0
+        self._dispatch = None  # ordered upload+dispatch worker (lazy)
         self._gop_deblock = False
         self._qround = float(c.qround)
         self._cdef = bool(c.cdef)
         self._lr = bool(c.lr)
         # per-block LAST/GOLDEN selection: slot 1 holds the GOP keyframe
         self._golden = bool(c.golden)
+        # delta-upload base chain: the previous source frame's padded
+        # planes on the host (for packing) and on the device (for
+        # unpacking; a chunk's outputs carry it forward, so it is never
+        # uploaded again)
+        self._delta_upload = bool(c.delta_upload)
+        self._src_base_host = None
+        self._src_base_dev = None
 
     @property
     def _ref(self):
         """Reference recon planes materialized to host int32."""
-        if self._ref_dev is None:
+        refs = self._resolve_refs()
+        if refs is None:
             return None
-        return tuple(p.cpu().numpy().astype(np.int32) for p in self._ref_dev)
+        return tuple(p.cpu().numpy().astype(np.int32) for p in refs)
 
     def start_stream(self) -> None:
         super().start_stream()
         self._order_hint = 0
         self._gop_deblock = False
+        self._src_base_host = None
+        self._src_base_dev = None
+
+    def _dispatch_pool(self):
+        if self._dispatch is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._dispatch = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="av1torch-dispatch")
+        return self._dispatch
+
+    def _resolve_refs(self):
+        """The reference chain may be a thunk onto an in-flight chunk
+        dispatch; resolve it to device tensors."""
+        r = self._ref_dev
+        if callable(r):
+            r = r()
+            self._ref_dev = r
+        return r
+
+    def _chunk_cap(self, width: int, height: int, bit_depth: int) -> int:
+        """K P-frames per chunk dispatch, capped as the JAX engine caps
+        them (8 x 1920x1088 samples, its validated compile envelope):
+        K decides when a rate controller sees each frame's bits, so the
+        same cap keeps the port's stream the reference's."""
+        budget = 8 * 1920 * 1088
+        px = width * height * (2 if bit_depth > 8 else 1)
+        return max(1, budget // max(1, px))
 
     def _submit(self, frame, qindex, force_key: bool = False,
                 is_key: Optional[bool] = None, refresh: bool = True):
@@ -281,6 +427,10 @@ class SpecTorchEngine(TorchEngine):
         self._order_hint += 1
         dev = self.device
         yj, uj, vj = (_upload(p, dev) for p in (yp, up, vp))
+        # delta-upload base chain: this frame's source is the next
+        # chunk's prediction base (host copy packs, device copy unpacks)
+        self._src_base_host = (yp, up, vp)
+        self._src_base_dev = (yj, uj, vj)
         total = ph * pw + 2 * (ph // 2) * (pw // 2)
         cap = total // SPARSE_CAP_FRACTION
         qindex = int(qindex)
@@ -308,18 +458,174 @@ class SpecTorchEngine(TorchEngine):
             pk = pack_outputs(out[3], out[4], out[5], grids, cap)
             return ("key", qindex, w, h, th, tw, ph, pw, bd, oh, refresh,
                     out, pk, cap, lfy, lfuv, damp, self._lr, self._golden)
-        refs = self._ref_dev
+        refs = self._resolve_refs()
         out = torch_inter.encode_frame(
             yj, uj, vj, refs[0], refs[1], refs[2], qindex, bd, th=th, tw=tw,
             qround=self._qround,
             gld=self._golden_dev if self._golden else None, **filters)
         if refresh:
             self._ref_dev = out[5:8]
-        grids = torch.cat([out[i].reshape(-1)
-                           for i in (0, 1, 8, 9, 10, 11, 12, 13, 14, 15)])
-        pk = pack_outputs(out[2], out[3], out[4], grids, cap)
+        pk = pack_outputs(out[2], out[3], out[4], _inter_grids([out]), cap)
         return ("inter", qindex, w, h, th, tw, ph, pw, bd, oh, refresh,
                 out, pk, cap, lfy, lfuv, damp, self._lr, self._golden)
+
+    def _submit_chunk(self, frames, qindexes):
+        """K P-frames as one dispatch.  Packing, upload and launch issue
+        run on the ordered dispatch worker, so the main thread
+        entropy-codes older dispatches meanwhile; the reference chain
+        and the device delta base become thunks on the worker's future,
+        resolved by every later reader."""
+        f0 = frames[0]
+        w, h, bd = f0.width, f0.height, f0.bit_depth
+        if bd not in (8, 10):
+            raise NotImplementedError(f"bit depth {bd}")
+        planes = [self._pad_planes(fr, 64) for fr in frames]
+        ph, pw = planes[0][0].shape
+        true_ok = _axis_true_dims_ok(w) and _axis_true_dims_ok(h, True)
+        th, tw = (h, w) if true_ok else (ph, pw)
+        k = len(frames)
+        ohs = [(self._order_hint + i) & 127 for i in range(k)]
+        self._order_hint += k
+        total = ph * pw + 2 * (ph // 2) * (pw // 2)
+        cap = k * (total // SPARSE_CAP_FRACTION)
+        ref_prev = self._ref_dev
+        # golden is read on the submit thread: the keyframe that owns it
+        # was submitted synchronously before this chunk, and reading it
+        # inside the worker could race a later GOP's keyframe
+        gld = self._golden_dev if self._golden else None
+        qi = [int(q) for q in qindexes]
+        dbl = self._gop_deblock
+        lf = [lf_levels(q, bd) if dbl else (0, 0) for q in qi]
+        damps = [cdef_damping(q) if self._cdef else None for q in qi]
+        # delta upload: snapshot the base chain here (ordered with the
+        # other submits) and advance its host side to this chunk's last
+        # frame; the device side advances through encode_chunk's last
+        # source planes (never uploaded again)
+        base_host, base_dev = self._src_base_host, self._src_base_dev
+        use_pack = (self._delta_upload
+                    and base_host is not None and base_dev is not None)
+        self._src_base_host = planes[-1]
+        dev = self.device
+        # the worker issues onto the stream current here, so that stream
+        # order queues every later reader behind the chunk's work
+        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" \
+            else None
+        kw = dict(k=k, ph=ph, pw=pw, bit_depth=bd, th=th, tw=tw, cap=cap,
+                  deblock=dbl, qround=self._qround, cdef=self._cdef,
+                  lr=self._lr, gld=gld)
+
+        def worker():
+            with torch.cuda.stream(stream):
+                refs = ref_prev() if callable(ref_prev) else ref_prev
+                src = None
+                if use_pack:
+                    bh = _base_fits(base_host, ph, pw)
+                    pk = (io_pack.pack_chunk(planes, bh, bit_depth=bd)
+                          if bh is not None else None)
+                    bdev = None
+                    if pk is not None:
+                        bdev = base_dev() if callable(base_dev) else base_dev
+                        bdev = _base_fits(tuple(bdev), ph, pw)
+                    if bdev is not None:
+                        nib, ep, ev, modes = pk
+                        if ev.dtype == np.uint16:
+                            ev = ev.view(np.int16)
+                        src = (to_device(nib, dev), to_device(ep, dev),
+                               to_device(ev, dev), modes, *bdev)
+                if src is None:
+                    src = upload_chunk_raw(planes, dev)
+                return encode_chunk(src, refs, qi, [a for a, _ in lf],
+                                    [b for _, b in lf],
+                                    [d or 4 for d in damps], **kw)
+
+        fut = self._dispatch_pool().submit(worker)
+        self._ref_dev = lambda: fut.result()[0]
+        self._src_base_dev = lambda: fut.result()[3]
+        return (qi, w, h, th, tw, ph, pw, bd, ohs, k, fut, lf, damps,
+                self._lr, self._golden)
+
+    @staticmethod
+    def _finalize_chunk(pending) -> list:
+        """Materialize a chunk and entropy-code its K frames on the
+        entropy pool (copied from the JAX engine's _finalize_chunk)."""
+        (qindexes, w, h, th, tw, ph, pw, bd, ohs, k, fut, lfs,
+         damps, lr_on, golden_on) = pending
+        _, pk, full = fut.result()[:3]
+        rs = (w, h) if (tw, th) != (w, h) else None
+        mi_cols, mi_rows = 2 * ((tw + 7) >> 3), 2 * ((th + 7) >> 3)
+        gh_t, gw_t = (mi_rows + 7) // 8, (mi_cols + 7) // 8
+        gh, gw = ph // 32, pw // 32
+        B = gh * gw
+        ntot = ph * pw + 2 * (ph // 2) * (pw // 2)
+        trl2, spans, _ = _tile_plan(th)
+        maskbytes, vals, count, grids = (t.cpu().numpy() for t in pk)
+        overflow = int(count) > vals.shape[0]
+        if not overflow:
+            flat = native.densify(maskbytes, vals, k * ntot)
+        strip = (th % 32) == 16
+        nsc = 2 * gw
+        mv8s = grids[:k * 2 * B].reshape(k, B, 2)
+        skips = grids[k * 2 * B:k * 3 * B].reshape(k, B)
+        stripss = grids[k * 3 * B:k * (3 * B + nsc)].reshape(k, nsc)
+        cdefss = grids[k * (3 * B + nsc):
+                       k * (3 * B + nsc + 4)].reshape(k, 4)
+        urows, ucols = _lr_nru(th, tw)
+        nru = urows * ucols
+        p0 = k * (3 * B + nsc + 4)
+        lrcs = grids[p0:p0 + k * nru].reshape(k, nru)
+        p0 += k * nru
+        splitss = grids[p0:p0 + k * B].reshape(k, B)
+        mv16ss = grids[p0 + k * B:p0 + k * 9 * B].reshape(k, B, 4, 2)
+        skip16ss = grids[p0 + k * 9 * B:
+                         p0 + k * 13 * B].reshape(k, B, 4)
+        refselss = grids[p0 + k * 13 * B:
+                         p0 + k * 14 * B].reshape(k, B)
+        p1 = p0 + k * 14 * B
+        lrtapss = grids[p1:p1 + k * nru * 6].reshape(k, nru, 6)
+
+        def one(i):
+            if overflow:
+                ylv, ulv, vlv = (full[j][i].cpu().numpy() for j in range(3))
+            else:
+                fl = flat[i * ntot:(i + 1) * ntot]
+                ylv = fl[:ph * pw].reshape(ph, pw)
+                ulv = fl[ph * pw:ph * pw + (ph // 2) * (pw // 2)] \
+                    .reshape(ph // 2, pw // 2)
+                vlv = fl[ph * pw + (ph // 2) * (pw // 2):] \
+                    .reshape(ph // 2, pw // 2)
+            modes = (1 + 3 * refselss[i].reshape(gh, gw)[:gh_t, :gw_t]
+                     ).astype(np.int32)
+            tiles = native.encode_tile_rows(
+                "inter", qindexes[i], mi_cols, mi_rows, spans,
+                (modes, mv8s[i].reshape(gh, gw, 2)[:gh_t, :gw_t],
+                 skips[i].reshape(gh, gw)[:gh_t, :gw_t]),
+                ylv, ulv, vlv,
+                strip_skip=stripss[i] if strip else None,
+                lr=((256,) + _lr_table(lrcs[i].reshape(urows, ucols),
+                                       lrtapss[i]))
+                if lr_on else None,
+                split3=(splitss[i].reshape(gh, gw)[:gh_t, :gw_t],
+                        mv16ss[i].reshape(gh, gw, 4, 2)[:gh_t, :gw_t],
+                        skip16ss[i].reshape(gh, gw, 4)[:gh_t, :gw_t]))
+            ch = None
+            if damps[i] is not None:
+                ch = (damps[i],) + tuple(int(x) for x in cdefss[i])
+            hdr = W.write_inter_frame_header(
+                tw, th, qindexes[i], order_hint=ohs[i],
+                ref_slots=(0, 0, 0, 1, 0, 0, 0) if golden_on
+                else (0,) * 7,
+                render_size=rs, tile_rows_log2=trl2,
+                lf_level=lfs[i][0], lf_level_uv=lfs[i][1], cdef=ch,
+                lr_types=(1, 0, 0) if lr_on else None)
+            hdr.byte_align()
+            return obu_mod.make_obu(
+                obu_mod.OBU_FRAME,
+                hdr.tobytes() + W.assemble_tile_group(tiles)), False
+
+        # frames in parallel on the entropy pool; each frame's tiles fan
+        # out further on the native tile pool (distinct pools, so no
+        # nested-submit deadlock)
+        return list(_entropy_pool().map(one, range(k)))
 
     @staticmethod
     def _finalize(pending) -> tuple[bytes, bool]:
@@ -430,7 +736,9 @@ class SpecTorchEngine(TorchEngine):
     # ---- daemon surface -------------------------------------------------
     def sequence_header(self, width: int, height: int, bit_depth: int = 8,
                         source_stream=None) -> SpecSequenceHeader:
-        sh = SpecSequenceHeader(width, height, bit_depth)
+        sh = SpecSequenceHeader(width, height, bit_depth,
+                                enable_cdef=self._cdef,
+                                enable_restoration=self._lr)
         if source_stream is not None:
             sh.color_primaries = getattr(source_stream,
                                          "color_primaries_code", 0)

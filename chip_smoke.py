@@ -32,20 +32,38 @@ Phases (any failure exits non-zero; nothing is caught):
               slice-720p-default  the 720p clip in the default config:
                                   deblocking, CDEF and LR on the 16-px
                                   strip geometry
+              slice-1080p-chunk8  the grain clip, 1 key + 8 P, in the
+                                  daemon's default config exactly,
+                                  TpuEncoderConfig(): one chunk of 8,
+                                  whose upload falls back to raw
+              slice-720p-chunk8   clean 720p drift, 1 key + 16 P, in
+                                  TpuEncoderConfig(): two chunks of 8,
+                                  both through the packed upload
               the first three with CDEF and LR off; every kernel of a
               path must launch (K1: 3 one-plane + 5 two-plane launches
-              per golden P-frame, 7 one-plane with golden off), and the
-              port's spec decoder must reproduce every plane of every
-              frame of each stream; fps, bits per pixel, Y-PSNR, key/P ms,
-              GOLDEN share per frame, and on the default paths the CDEF
-              strengths and the share of restoration units on and solved
-              per frame, held against the frame headers
+              per golden P-frame, 7 one-plane with golden off; K2 3), and
+              the port's spec decoder must reproduce every plane of every
+              frame of each stream (in worker processes, while the card
+              encodes the next cells); fps, bits per pixel,
+              Y-PSNR, key/P ms, GOLDEN share per frame, and on the default
+              paths the CDEF strengths and the share of restoration units
+              on and solved per frame, held against the frame headers.
+              Each chunk cell runs again through
+              TpuEncoderConfig(delta_upload=False) and
+              TpuEncoderConfig(chunk=1) in the same call and must give
+              their bytes frame by frame; it prints per chunk the upload
+              path (packed, with the plane modes, or raw), host pack ms,
+              upload bytes packed against raw, submit-to-result and
+              finalize ms, per run fps and peak device memory, and the
+              first chunk's upload ms raw and packed
   5. conform  256x144 streams (16-px strip) decoded by the port's own spec
               decoder must equal the port's reconstruction, and the CPU run
               of the port must give the same bytes: a grainy golden-off
               1 key + 3 P, a clean golden key A, inter B, inter A with
-              the loop filter on and GOLDEN blocks, and the grainy clip in
-              the default config with CDEF and LR on
+              the loop filter on and GOLDEN blocks, the grainy clip in
+              the default config with CDEF and LR on, and a clean drift in
+              the default config at chunk=3 (key, a packed chunk of 3, a
+              remainder of 1) through encode_stream
 
 With --profile, one more P-frame of each golden path runs after the
 slices, timed with each in-loop filter stage (deblocking, CDEF, LR)
@@ -60,6 +78,7 @@ on the main path, error, timings and bound (per main-path shape under
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -77,8 +96,15 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 
 
+# the decode worker processes (started at the first full-size decode
+# check) and the checks handed to them
+_decodes = {"pool": None, "jobs": []}
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
+    if _decodes["pool"] is not None:
+        _decodes["pool"].terminate()
     sys.exit(1)
 
 
@@ -122,6 +148,10 @@ def bound_ms(nbytes: int, ops: int = 0) -> tuple[float, str]:
     to = ops / INT8_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
+
+# processes that run the decode checks of the full-size streams while the
+# card encodes the next cells
+DECODE_WORKERS = 3
 
 # the frame sizes of the full-width paths; the kernels are held against
 # their plain versions at the shapes each of them gives
@@ -645,30 +675,77 @@ def run_slice(name: str, frames, golden: bool, dev_name: str, Q: int = 96,
             "shares": shares, "frame": frames[-1]}
 
 
+def _decode_mismatch(payloads, recons):
+    """The port's spec decoder on a stream: None when every plane of
+    every frame equals the reconstruction given as host arrays, else
+    what differs.  Runs in a decode worker process."""
+    import numpy as np
+
+    from av1tpu_torch.specav1 import decoder
+    dec = decoder.Decoder()
+    for i, (tu, rec) in enumerate(zip(payloads, recons)):
+        got = dec.decode_tu(bytes(tu))
+        if len(got) != 1:
+            return (f"the spec decoder returned {len(got)} frames for "
+                    f"payload {i}")
+        for pl in range(3):
+            hh, ww = got[0][pl].shape
+            if not np.array_equal(np.asarray(got[0][pl], np.int64),
+                                  rec[pl][:hh, :ww].astype(np.int64)):
+                return f"decoded frame {i} plane {pl} != port recon"
+    return None
+
+
+def _decode_job(payloads, recons):
+    t = time.perf_counter()
+    return _decode_mismatch(payloads, recons), time.perf_counter() - t
+
+
+def decode_async(name: str, payloads, recons, what: str) -> None:
+    """Hands a stream's decode check to a worker process (the Python
+    decoder takes 11-28 s a 1080p frame), so that the card encodes the
+    next cells meanwhile; ``decode_wait`` collects the verdicts."""
+    import multiprocessing
+    if len(payloads) != len(recons):
+        fail(f"{name}: {len(payloads)} payloads for {len(recons)} recons")
+    if _decodes["pool"] is None:
+        _decodes["pool"] = multiprocessing.get_context("spawn").Pool(
+            DECODE_WORKERS)
+    host = [tuple(p.cpu().numpy() for p in r) for r in recons]
+    job = _decodes["pool"].apply_async(
+        _decode_job, ([bytes(p) for p in payloads], host))
+    _decodes["jobs"].append((name, what, job))
+
+
+def decode_wait() -> None:
+    """Every decode check's verdict, in the order they were handed out;
+    then the worker processes end."""
+    pool = _decodes["pool"]
+    if pool is None:
+        return
+    t = time.perf_counter()
+    for name, what, job in _decodes["jobs"]:
+        err, secs = job.get()
+        if err:
+            fail(f"{name}: {err}")
+        log(f"{name}: the port's spec decoder reproduces the recon of "
+            f"{what} exactly, three planes each (decode {secs:.1f} s in a "
+            "worker process)")
+    pool.close()
+    pool.join()
+    _decodes["pool"] = None
+    log(f"decode checks: waited {time.perf_counter() - t:.1f} s after the "
+        "last encode")
+
+
 def decode_check(name: str, r: dict) -> None:
     """The port's spec decoder on the whole stream of a run: every plane
     of every frame must equal the encoder's reconstruction, which holds
     the motion vectors, the reference choice and the loop filter of the
     full-size path to a second statement of each."""
-    import numpy as np
-
-    from av1tpu_torch.specav1 import decoder
-    t = time.perf_counter()
-    dec = decoder.decode_stream([p for p, _ in r["out"]])
-    secs = time.perf_counter() - t
     rows = r["eng"].rows
-    if len(dec) != len(rows):
-        fail(f"{name}: the spec decoder returned {len(dec)} frames")
-    for i, (d, row) in enumerate(zip(dec, rows)):
-        for pl in range(3):
-            hh, ww = d[pl].shape
-            rec = row[3][pl][:hh, :ww].cpu().numpy()
-            if not np.array_equal(np.asarray(d[pl], np.int64),
-                                  rec.astype(np.int64)):
-                fail(f"{name}: decoded frame {i} plane {pl} != port recon")
-    log(f"{name}: the port's spec decoder reproduces the recon of all "
-        f"{len(rows)} frames exactly, three planes each (decode {secs:.1f} s "
-        "on the host)")
+    decode_async(name, [p for p, _ in r["out"]], [row[3] for row in rows],
+                 f"all {len(rows)} frames")
 
 
 def need_launches(name: str, launches: dict, kernels) -> None:
@@ -739,7 +816,8 @@ def phase_slices(dev_name: str):
 
     # one reference, grainy: the earlier slice at a smaller depth
     rng = np.random.default_rng(7)
-    frames = [grainy_frame(W, H, i, rng) for i in range(4)]
+    grain9 = [grainy_frame(W, H, i, rng) for i in range(9)]
+    frames = grain9[:4]
     if not noise_floor(frames[0].y) > 1.0:
         fail("grainy clip's noise floor is not above 1")
     r = run_slice("slice-1080p-grain", frames, False, dev_name)
@@ -766,6 +844,19 @@ def phase_slices(dev_name: str):
     decode_check("slice-1080p-default", r)
     counts["slice-1080p-default"] = r["launches"]
     runs["slice-1080p-default"] = r
+
+    # the daemon's default config exactly, TpuEncoderConfig(): the grain
+    # clip's 1 key + 8 P make one full chunk of 8, which falls back to
+    # the raw upload (the grain's residual outliers exceed the cap); its
+    # first four payloads are slice-1080p-default's
+    default_out = [p for p, _ in r["out"]]
+    c = run_chunk_cell("slice-1080p-chunk8", grain9, dev_name, packed=False)
+    if c["payloads"][:4] != default_out:
+        fail("slice-1080p-chunk8: the first four payloads differ from "
+             "slice-1080p-default's")
+    decode_async("slice-1080p-chunk8", c["payloads"], c["recons"],
+                 f"all {len(grain9)} frames")
+    counts["slice-1080p-chunk8"] = c["launches"]
 
     # two references: scene A, five blends towards scene B (each step
     # under the scene-cut threshold), then a cut back to A
@@ -831,7 +922,239 @@ def phase_slices(dev_name: str):
     decode_check("slice-720p-default", r)
     counts["slice-720p-default"] = r["launches"]
     runs["slice-720p-default"] = r
+
+    # the default config exactly on the clean 720p drift: 1 key + 16 P,
+    # two full chunks of 8, both through the packed upload
+    frames = [clean_frame(W, H, i, 0) for i in range(17)]
+    c = run_chunk_cell("slice-720p-chunk8", frames, dev_name, packed=True)
+    decode_async("slice-720p-chunk8", c["payloads"], c["recons"],
+                 f"all {len(frames)} frames")
+    counts["slice-720p-chunk8"] = c["launches"]
     return counts, runs
+
+
+@contextlib.contextmanager
+def capture_recons():
+    """Collects each frame's reconstruction (int16 copies on the
+    device) in dispatch order while the block runs, from the keyframe
+    and P-frame encoders wherever they are called: on the caller's
+    thread or on the chunk dispatch worker."""
+    import torch
+
+    from av1tpu_torch.specav1 import torch_inter, torch_intra
+    recons = []
+    real = {torch_intra: torch_intra.encode_frame,
+            torch_inter: torch_inter.encode_frame}
+
+    def spy(mod, sl):
+        def call(*a, **k):
+            out = real[mod](*a, **k)
+            recons.append(tuple(p.to(torch.int16) for p in out[sl]))
+            return out
+        return call
+
+    torch_intra.encode_frame = spy(torch_intra, slice(0, 3))
+    torch_inter.encode_frame = spy(torch_inter, slice(5, 8))
+    try:
+        yield recons
+    finally:
+        for mod, fn in real.items():
+            mod.encode_frame = fn
+
+
+def run_chunk_cell(name: str, frames, dev_name: str, packed: bool,
+                   Q: int = 96) -> dict:
+    """One stream in the daemon's default config exactly,
+    TpuEncoderConfig() (chunk=8, delta_upload, golden, CDEF and LR on),
+    with the launch counts set to 0 just before and read just after, and
+    then through TpuEncoderConfig(delta_upload=False) and
+    TpuEncoderConfig(chunk=1) in the same call: the bytes must agree
+    frame by frame.  No dispatch is bracketed by
+    synchronizes.  Per chunk: whether its upload was packed (``packed``
+    says which every chunk must take), the host pack ms, the upload bytes
+    packed against raw, submit-to-result ms (submit until the chunk's
+    device work has ended, its wait behind older dispatches included),
+    finalize ms; per run: fps over the stream and over its P-frames
+    (first P submit to last payload), peak device memory (above what the
+    earlier runs still hold); and the first chunk's upload alone, raw and
+    packed."""
+    import numpy as np
+    import torch
+
+    from av1tpu_torch import spec_engine
+    from av1tpu_torch.config import TpuEncoderConfig
+    from av1tpu_torch.encoder import io_pack
+
+    class Timed(spec_engine.SpecTorchEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.first_p, self.sub_t, self.res_ms = None, [], []
+            self.fin_ms = {"key": [], "single": [], "chunk": []}
+
+        def _submit(self, frame, qindex, **kw):
+            if not kw.get("is_key") and self.first_p is None:
+                self.first_p = time.perf_counter()
+            return super()._submit(frame, qindex, **kw)
+
+        def _submit_chunk(self, frames, qindexes):
+            t = time.perf_counter()
+            if self.first_p is None:
+                self.first_p = t
+            self.sub_t.append(t)
+            return super()._submit_chunk(frames, qindexes)
+
+        def _finalize(self, pending):
+            t = time.perf_counter()
+            res = super()._finalize(pending)
+            self.fin_ms["key" if res[1] else "single"].append(
+                (time.perf_counter() - t) * 1e3)
+            return res
+
+        def _finalize_chunk(self, pending):
+            i = len(self.res_ms)
+            pending[10].result()
+            issued[i]["event"].synchronize()
+            t = time.perf_counter()
+            self.res_ms.append((t - self.sub_t[i]) * 1e3)
+            res = super()._finalize_chunk(pending)
+            self.fin_ms["chunk"].append((time.perf_counter() - t) * 1e3)
+            return res
+
+    real_pack, real_chunk = io_pack.pack_chunk, spec_engine.encode_chunk
+    packs, issued = [], []
+
+    def pack_spy(planes, base, cap=None, bit_depth=8):
+        t = time.perf_counter()
+        res = real_pack(planes, base, cap, bit_depth)
+        packs.append(((time.perf_counter() - t) * 1e3,
+                      None if res is None else sum(a.nbytes for a in res),
+                      sum(p.nbytes for tri in planes for p in tri),
+                      None if res is None else
+                      ["spatial-H" if m == io_pack.MODE_SPATIAL_H
+                       else "temporal" for m in res[3]]))
+        return res
+
+    def chunk_spy(src, *a, **k):
+        res = real_chunk(src, *a, **k)
+        ev = torch.cuda.Event()
+        ev.record()
+        issued.append({"packed": isinstance(src, tuple), "event": ev})
+        return res
+
+    N = len(frames)
+    H, W = frames[0].height, frames[0].width
+    runs = {}
+    counters = _counters()
+    for label, cfg in (("chunk=8", TpuEncoderConfig()),
+                       ("chunk=8 raw", TpuEncoderConfig(delta_upload=False)),
+                       ("chunk=1", TpuEncoderConfig(chunk=1))):
+        eng = Timed(cfg, device=dev_name)
+        packs.clear()
+        issued.clear()
+        for fn in counters.values():
+            fn.launches = 0
+        io_pack.pack_chunk, spec_engine.encode_chunk = pack_spy, chunk_spy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        try:
+            with capture_recons() as recons:
+                t0 = time.perf_counter()
+                out = list(eng.encode_stream(frames, Q))
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+        finally:
+            io_pack.pack_chunk, spec_engine.encode_chunk = real_pack, \
+                real_chunk
+        launches = {k: fn.launches for k, fn in counters.items()}
+        runs[label] = dict(
+            label=label, eng=eng, out=out, recons=recons, launches=launches,
+            fps=N / (t1 - t0), p_fps=(N - 1) / (t1 - eng.first_p),
+            peak=torch.cuda.max_memory_allocated() - held, packs=list(packs),
+            issued=[c["packed"] for c in issued])
+    c8, c8r, c1 = runs["chunk=8"], runs["chunk=8 raw"], runs["chunk=1"]
+    keys = [k for _, k in c8["out"]]
+    n_p = N - sum(keys)
+    if keys != [True] + [False] * (N - 1):
+        fail(f"{name}: frame types {keys}")
+    if len(c8["recons"]) != N:
+        fail(f"{name}: {len(c8['recons'])} recons for {N} frames")
+    k = c8["eng"].cfg.chunk
+    if len(c8["issued"]) != n_p // k or c1["issued"]:
+        fail(f"{name}: {len(c8['issued'])} chunk dispatches with chunk=8, "
+             f"{len(c1['issued'])} with chunk=1, for {n_p} P-frames")
+    for other in (c8r, c1):
+        if [p for p, _ in c8["out"]] != [p for p, _ in other["out"]]:
+            bad = [i for i, (a, b) in enumerate(zip(c8["out"], other["out"]))
+                   if a[0] != b[0]]
+            fail(f"{name}: chunk=8 and {other['label']} streams differ at "
+                 f"frames {bad}")
+    if c8["issued"] != [packed] * len(c8["issued"]):
+        fail(f"{name}: chunk uploads packed {c8['issued']}, expected "
+             f"{packed} for every chunk")
+    if c8r["packs"] or any(c8r["issued"]):
+        fail(f"{name}: delta_upload=False packed a chunk")
+    need_launches(name, c8["launches"],
+                  ("gather_windows", "gather_windows2", "refine_ssd"))
+    need_k1_launches(name, c8["launches"], n_p, 3, 5)
+    if c8["launches"]["refine_ssd"] != 3 * n_p:
+        fail(f"{name}: K2 launches {c8['launches']['refine_ssd']} over {n_p} "
+             "P-frames, expected 3 a frame")
+    mse = [float(np.mean((r[0][:H, :W].cpu().numpy().astype(np.float64)
+                          - f.y) ** 2)) for r, f in zip(c8["recons"], frames)]
+    psnr = 10 * np.log10(255.0 ** 2 / np.mean(mse))
+    if not np.isfinite(psnr) or psnr < 28.0:
+        fail(f"{name}: Y-PSNR {psnr} dB")
+    bpp = sum(len(p) * 8 for p, _ in c8["out"]) / (N * W * H)
+    log(f"{name}: TpuEncoderConfig() (chunk=8, delta_upload, golden, CDEF, "
+        f"LR), {N} frames (1 key + {n_p} P, {len(c8['issued'])} chunk(s) of "
+        f"{k}): {bpp:.5f} bpp, Y-PSNR {psnr:.3f} dB (q{Q}); bytes equal "
+        f"TpuEncoderConfig(delta_upload=False)'s and "
+        f"TpuEncoderConfig(chunk=1)'s frame by frame")
+    for i, ((pms, pbytes, rbytes, modes), pk) in enumerate(
+            zip(c8["packs"], c8["issued"])):
+        log(f"{name}: chunk {i}: upload "
+            f"{f'packed {modes}' if pk else 'raw'}, host "
+            f"pack {pms:.1f} ms, upload bytes "
+            f"{'-' if pbytes is None else pbytes} packed against {rbytes} "
+            f"raw; submit-to-result {c8['eng'].res_ms[i]:.1f} ms, finalize "
+            f"{c8['eng'].fin_ms['chunk'][i]:.1f} ms")
+    for label, rr in runs.items():
+        fm = rr["eng"].fin_ms
+        per_p = (f"{np.mean(fm['chunk']) / k:.1f} ms a P-frame in a chunk"
+                 if fm["chunk"] else
+                 f"{np.mean(fm['single']):.1f} ms a P-frame")
+        log(f"{name}: {label}: {N} frames at {rr['fps']:.4f} fps, P-frames "
+            f"at {rr['p_fps']:.3f} fps (first P submit to last payload), "
+            f"finalize key {np.mean(fm['key']):.1f} ms, {per_p}, peak "
+            f"device memory {rr['peak'] / 2 ** 20:.1f} MiB")
+    # the upload alone, outside the stream: the first chunk's planes raw,
+    # and packed against the key's source, host to device, best of 3
+    planes = [Timed._pad_planes(f, 64) for f in frames[:k + 1]]
+    dev = torch.device(dev_name)
+
+    def best_ms(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return min(times)
+
+    raw_ms = best_ms(lambda: spec_engine.upload_chunk_raw(planes[1:], dev))
+    pk = real_pack(planes[1:], planes[0])
+    packed_ms = ("none (over the cap)" if pk is None else "%.3f ms"
+                 % best_ms(lambda: [spec_engine.to_device(a, dev)
+                                    for a in pk[:3]]))
+    log(f"{name}: chunk 0's upload alone, host to device through pinned "
+        f"memory (best of 3, synchronized): raw {raw_ms:.3f} ms, packed "
+        f"{packed_ms}")
+    log(f"{name}: launches {c8['launches']}, per P-frame "
+        f"{ {kk: round(v / n_p, 2) for kk, v in c8['launches'].items()} }")
+    return {"payloads": [p for p, _ in c8["out"]], "recons": c8["recons"],
+            "launches": c8["launches"]}
 
 
 def _device_events(prof):
@@ -985,6 +1308,44 @@ def phase_conform(dev_name: str):
         log(f"conformance 256x144 ({what[kind]}): CPU plain path and GPU "
             "kernels give byte-identical streams")
 
+    # chunked dispatch: the clean drift in the default config at chunk=3
+    # (key, one chunk of 3 through the packed upload, a remainder of 1)
+    from av1tpu_torch.encoder import io_pack
+    frames = [clean_frame(256, 144, t, 0) for t in range(5)]
+    streams = {}
+    real_pack = io_pack.pack_chunk
+    for device in (dev_name, "cpu"):
+        packs = []
+
+        def pack_spy(*a, **k):
+            res = real_pack(*a, **k)
+            packs.append(res is not None)
+            return res
+
+        eng = SpecTorchEngine(TpuEncoderConfig(chunk=3), device=device)
+        io_pack.pack_chunk = pack_spy
+        try:
+            with capture_recons() as recons:
+                out = list(eng.encode_stream(frames, 96))
+        finally:
+            io_pack.pack_chunk = real_pack
+        if packs != [True] or [k for _, k in out] != [True] + [False] * 4:
+            fail(f"conformance (chunk=3, {device}): packed uploads {packs}, "
+                 f"frame types {[k for _, k in out]}")
+        streams[device] = [p for p, _ in out]
+        if device == dev_name:
+            err = _decode_mismatch(streams[device], [
+                tuple(p.cpu().numpy() for p in r) for r in recons])
+            if err:
+                fail(f"conformance (chunk=3): {err}")
+    if streams[dev_name] != streams["cpu"]:
+        fail("conformance (chunk=3): CPU and GPU runs of the port gave "
+             "different streams")
+    log("conformance 256x144 (clean, default config at chunk=3: key, a "
+        "packed chunk of 3, a remainder of 1): the port's spec decoder "
+        "reproduces the recon of all 5 frames, and the CPU plain path and "
+        "the GPU kernels give byte-identical streams")
+
 
 def kernel_entry(name, source, replaces, counts, err, rows):
     """One kernel of the JSON line: the first (1080p) shape's numbers at
@@ -1002,6 +1363,7 @@ def kernel_entry(name, source, replaces, counts, err, rows):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "av1tpu_torch")):
         fail("run from the root of a checkout: av1tpu_torch/ must sit next "
              "to chip_smoke.py")
@@ -1024,6 +1386,9 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         phase_profile(runs)
     phase_conform(dev_name)
+    decode_wait()
+    log(f"smoke: {time.perf_counter() - t_start:.1f} s from start to the "
+        "last check")
 
     print(json.dumps({"kernels": [
         kernel_entry("gather_windows", "av1tpu_torch/csrc/gather.cu",

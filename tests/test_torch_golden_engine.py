@@ -10,7 +10,10 @@ with the strip rows in CDEF's skip grid.  LAST (B's recon) is useless
 for the third frame while GOLDEN (A's filtered recon) is nearly it.
 The port's bytes must equal ``SpecTpuEngine``'s; the port's decoder,
 the JAX package's and libaom must each reproduce the port's
-reconstruction.
+reconstruction.  A clean drift through both engines in the default
+config at ``chunk=2`` (key, a chunk of 2 through the packed upload, a
+remainder) gives the same bytes too; it reuses this file's keyframe and
+P-frame programs, so its one new JAX program is the chunk program.
 """
 
 import functools
@@ -110,3 +113,44 @@ def test_golden_flash_back_frame_is_smaller():
     assert n_gold[1] > 8, n_gold
     assert _gop()["port", False][2] == [0, 0]
     assert len(payloads[2]) < len(_gop()["port", False][0][2]) // 2
+
+
+def test_chunked_deblock_gop_matches_jax_engine(monkeypatch):
+    """TpuEncoderConfig(chunk=2) through encode_stream under the same
+    LookaheadRateController: 4 frames of clean drift make a key, one
+    chunk of 2 whose sources both engines upload packed, and a
+    remainder; the port's stream equals SpecTpuEngine's, payload by
+    payload."""
+    from av1tpu.encoder import io_pack as j_io_pack
+    from av1tpu.encoder import ratectrl as j_ratectrl
+    from av1tpu_torch.encoder import io_pack, ratectrl
+    frames = [clean_frame(W, H, t, 0) for t in range(4)]
+
+    def run(eng, rc, pack_mod):
+        rate = rc.LookaheadRateController(96, target_bits=4 * W * H * 0.6,
+                                          total_frames=4, keyint=120)
+        chunks, packs = [], []
+        submit, real_pack = eng._submit_chunk, pack_mod.pack_chunk
+
+        def chunk_spy(fr, qs):
+            chunks.append(len(fr))
+            return submit(fr, qs)
+
+        def pack_spy(*a, **k):
+            res = real_pack(*a, **k)
+            packs.append(res is not None)
+            return res
+
+        eng._submit_chunk = chunk_spy
+        monkeypatch.setattr(pack_mod, "pack_chunk", pack_spy)
+        out = list(eng.encode_stream(frames, rate))
+        assert [k for _, k in out] == [True, False, False, False]
+        assert chunks == [2] and packs == [True]
+        return [bytes(p) for p, _ in out]
+
+    want = run(SpecTpuEngine(TpuEncoderConfig(chunk=2)), j_ratectrl,
+               j_io_pack)
+    got = run(SpecTorchEngine(port_config.TpuEncoderConfig(chunk=2),
+                              device="cpu"), ratectrl, io_pack)
+    for i in range(4):
+        assert got[i] == want[i], (i, len(got[i]), len(want[i]))

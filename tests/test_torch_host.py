@@ -253,6 +253,29 @@ def test_header_writers_match_jax_package(w, h, q, bd):
     tiles = [b"\x01\x02", b"\x03", b"\x04\x05\x06"]
     assert writer.assemble_tile_group(tiles) == \
         j_writer.assemble_tile_group(tiles)
+    # the engines' av1C record (the container's CodecPrivate): the CDEF and
+    # LR enable flags follow the config, the colour codes the source stream
+    from av1tpu.config import TpuEncoderConfig as JaxConfig
+    from av1tpu.spec_engine import SpecTpuEngine
+    for cfg in ({}, dict(cdef=False, lr=False), dict(cdef=True, lr=False)):
+        ref = SpecTpuEngine(JaxConfig(**cfg))
+        eng = spec_engine.SpecTorchEngine(TpuEncoderConfig(**cfg),
+                                          device="cpu")
+        for stream in (None, _SourceStream()):
+            want = ref.codec_private(ref.sequence_header(w, h, bd, stream))
+            got = eng.codec_private(eng.sequence_header(w, h, bd, stream))
+            assert got == want
+            (o,) = obu.parse_obus(got[4:])
+            seq = headers.parse_sequence_header(o.payload)
+            assert (bool(seq.enable_cdef), bool(seq.enable_restoration)) == \
+                (cfg.get("cdef", True), cfg.get("lr", True))
+
+
+class _SourceStream:
+    """A probed source stream's colour codes (BT.2020 PQ)."""
+    color_primaries_code = 9
+    color_transfer_code = 16
+    color_matrix_code = 9
 
 
 @pytest.mark.parametrize("bd", [8, 10])

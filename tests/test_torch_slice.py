@@ -174,11 +174,11 @@ def test_port_source_imports_no_av1tpu(path):
 
 
 def test_engine_rejects_unported_config():
-    """golden, CDEF and LR are accepted, alone and together: the
-    daemon's defaults but for chunking construct and encode, and the
-    frame header carries the searched CDEF strengths.  What is still
-    missing raises: chunking, more than one device, and so the defaults
-    themselves (chunk=8)."""
+    """golden, CDEF and LR are accepted, alone and together, and so are
+    the daemon's defaults themselves (chunk=8, delta_upload): they
+    construct and encode a key and a full chunk of 8, and the frame
+    header carries the searched CDEF strengths.  What is still missing
+    raises: more than one device."""
     from av1tpu_torch.config import TpuEncoderConfig
     from av1tpu_torch.spec_engine import SpecTorchEngine
     from av1tpu_torch.specav1 import headers, obu
@@ -207,13 +207,22 @@ def test_engine_rejects_unported_config():
     assert seq.enable_cdef and seq.enable_restoration
     assert [c.y_pri[0], c.y_sec[0], c.uv_pri[0], c.uv_sec[0]] == \
         pend[11][16].tolist()
-    for kw, what in ((dict(chunk=4), "chunk"),
-                     (dict(num_chips=2), "num_chips")):
-        with pytest.raises(NotImplementedError, match=what):
-            SpecTorchEngine(TpuEncoderConfig(**{**ok, **kw}), device="cpu")
-    # the defaults ask for chunked dispatch
-    with pytest.raises(NotImplementedError, match="chunk"):
-        SpecTorchEngine(TpuEncoderConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="num_chips"):
+        SpecTorchEngine(TpuEncoderConfig(**{**ok, "num_chips": 2}),
+                        device="cpu")
+    # the defaults: chunked dispatch with packed upload
+    eng = SpecTorchEngine(TpuEncoderConfig(), device="cpu")
+    assert eng.cfg.chunk == 8 and eng._delta_upload
+    chunks = []
+    submit = eng._submit_chunk
+    eng._submit_chunk = lambda fr, qs: chunks.append(len(fr)) or submit(fr,
+                                                                        qs)
+    frames = [testsrc.testsrc2(64, 64, i) for i in range(9)]
+    out = list(eng.encode_stream(frames, 96))
+    assert [k for _, k in out] == [True] + [False] * 8 and chunks == [8]
+    obus = list(obu.parse_obus(out[-1][0]))
+    hdr = headers.parse_frame_header(obus[0].payload, seq)
+    assert list(hdr.lr.frame_restoration_type) == [1, 0, 0]
 
 
 def test_engine_refuses_deblocking_gop():
