@@ -1,0 +1,75 @@
+# Copied from av1tpu/daemon/engine.py (one device; the engine is
+# SpecTorchEngine).
+"""Engine bootstrap and self-test (the EnsureFFmpeg/VerifyFFmpeg analog).
+
+The reference downloads a static ffmpeg, verifies its version and encoder
+list, and runs a live 1-frame 1280x720 synthetic encode at every daemon
+start (internal/ffmpeg/binary.go:21-310).  Our engine is in-process, so
+"ensure" reduces to constructing it on the requested device (the card
+unless the caller asks for the CPU), and "verify" runs the same hermetic
+smoke test: one synthetic 1280x720 frame through the full encode path
+(binary.go:282-295 analog).
+
+Multi-device stripes (the JAX package's ``distributed.maybe_initialize``
+and ``num_chips > 1``) are not ported; one device encodes.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+
+log = logging.getLogger("av1tpu_torch.engine")
+
+
+class EngineError(Exception):
+    """Actionable engine bootstrap/self-test failure (binary.go:313-330 analog)."""
+
+
+def make_engine(cfg, device: str = "cuda"):
+    """Construct the configured engine ("tpu" is the only real engine)
+    on ``device``.  A missing card raises EngineError; nothing falls
+    back to the CPU unless the caller asks for it."""
+    if cfg.encoder != "tpu":
+        raise EngineError(
+            f"unknown encoder '{cfg.encoder}' (this build provides 'tpu'); "
+            "set \"encoder\": \"tpu\" in the config")
+    if getattr(cfg.tpu, "bitstream", "spec") == "av1tpu":
+        raise EngineError(
+            "tpu.bitstream 'av1tpu' selects the retired legacy engine, "
+            "which is not ported to av1tpu_torch; use \"spec\"")
+    from av1tpu_torch.spec_engine import SpecTorchEngine
+    try:
+        return SpecTorchEngine(cfg.tpu, device=device)
+    except (RuntimeError, ValueError, NotImplementedError) as e:
+        raise EngineError(f"engine unavailable on {device!r}: {e}") from e
+
+
+def verify_engine(engine, size: str = "1280x720") -> float:
+    """1-frame synthetic encode self-test; returns elapsed seconds.
+
+    Hermetic input, real hardware — the analog of the reference's
+    ``-f lavfi -i testsrc2=s=1280x720:d=1 ... -c:v av1_qsv -f null -``
+    startup probe (binary.go:244-310).  Raises EngineError on failure with
+    an actionable message.  ``size`` is configurable (tpu.self_test_size).
+    """
+    from av1tpu_torch.utils.testsrc import testsrc2
+    try:
+        w, h = (int(x) for x in size.lower().split("x"))
+    except ValueError:
+        w, h = 1280, 720
+    frame = testsrc2(w, h, frame_index=0)
+    t0 = time.monotonic()
+    try:
+        payload = engine.encode_smoke_frame(frame)
+    except Exception as e:
+        raise EngineError(
+            f"self-test encode failed: {e}; check that the card is "
+            "healthy (torch.cuda.is_available()) and no other process "
+            "holds it") from e
+    if not payload:
+        raise EngineError("self-test encode produced no bitstream")
+    dt = time.monotonic() - t0
+    log.info("engine self-test OK: 1 frame %dx%d in %.2fs (%d bytes)",
+             w, h, dt, len(payload))
+    return dt

@@ -378,6 +378,11 @@ class SpecTorchEngine(TorchEngine):
         return tuple(p.cpu().numpy().astype(np.int32) for p in refs)
 
     def start_stream(self) -> None:
+        # a stream that raised may have left chunks on the dispatch
+        # worker; the next stream starts once they have run, so it reads
+        # none of their thunks and never races them
+        if self._dispatch is not None:
+            self._dispatch.submit(lambda: None).result()
         super().start_stream()
         self._order_hint = 0
         self._gop_deblock = False
@@ -750,3 +755,14 @@ class SpecTorchEngine(TorchEngine):
 
     def codec_private(self, sh) -> bytes:
         return sh.av1c()
+
+    def _prewarm(self, width: int, height: int, bit_depth: int = 8):
+        """Build, before frames flow, what the first frame would
+        otherwise build inside the timed path: the CUDA kernel library
+        (on the card) and the native tile writer.  The JAX engine
+        compiles its XLA programs here; the port has nothing to compile.
+        Nothing is encoded, so the rate controller and the reference
+        chain are untouched and no output byte changes."""
+        if self.device.type == "cuda":
+            D.kernels()
+        native._lib()

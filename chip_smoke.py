@@ -15,7 +15,25 @@ Phases (any failure exits non-zero; nothing is caught):
               CUDA events at each, beside the bound and the roofline share;
               K1 at random origins and at path-like ones (the block grid
               plus vectors within the refine radius)
-  4. slices   through SpecTorchEngine(cfg, device="cuda").encode_stream at
+  4. daemon   daemon-1080p: one pass of the port's daemon,
+              av1tpu_torch.daemon.main.run_once(cfg) with engine=None, as
+              ``python3 -m av1tpu_torch.daemon.main cfg.json`` runs it,
+              over a library holding one file: slice-1080p-chunk8's 9
+              grainy 1920x1080 frames as a y4m stream named clip.mkv;
+              the daemon's default config (library, min_bytes and job
+              directory aside), so the engine is built on the card and
+              runs its 1280x720 self-test, then scan, probe, job JSON,
+              transcode in TpuEncoderConfig(), size gate,
+              decode-verify and atomic replace.  The job must succeed
+              with 9 frames, clip.mkv must be Matroska of the job's
+              size whose V_AV1 payloads are what encode_stream yielded
+              (and slice-1080p-chunk8's bytes), K1 3 + 5 and K2 3
+              launches a P-frame, and the port's spec decoder must
+              reproduce every frame's recon; prints the source decoders
+              the machine has, the decode-verify verdict, self-test and
+              transcode seconds, the job's encode_fps, the size ratio
+              and each chunk's upload (packed or raw)
+  5. slices   through SpecTorchEngine(cfg, device="cuda").encode_stream at
               qindex 96, with the launch counts set to 0 before each:
               slice-1080p-grain   1 key + 3 P, seeded grainy 1920x1080,
                                   golden off (one reference)
@@ -56,7 +74,7 @@ Phases (any failure exits non-zero; nothing is caught):
               upload bytes packed against raw, submit-to-result and
               finalize ms, per run fps and peak device memory, and the
               first chunk's upload ms raw and packed
-  5. conform  256x144 streams (16-px strip) decoded by the port's own spec
+  6. conform  256x144 streams (16-px strip) decoded by the port's own spec
               decoder must equal the port's reconstruction, and the CPU run
               of the port must give the same bytes: a grainy golden-off
               1 key + 3 P, a clean golden key A, inter B, inter A with
@@ -151,7 +169,7 @@ def bound_ms(nbytes: int, ops: int = 0) -> tuple[float, str]:
 
 # processes that run the decode checks of the full-size streams while the
 # card encodes the next cells
-DECODE_WORKERS = 3
+DECODE_WORKERS = 4
 
 # the frame sizes of the full-width paths; the kernels are held against
 # their plain versions at the shapes each of them gives
@@ -803,9 +821,11 @@ def check_filter_headers(name: str, r: dict) -> None:
         "restoration")
 
 
-def phase_slices(dev_name: str):
-    """The five full-size paths; returns each path's launch counts and
-    its run (engine and last frame included)."""
+def phase_slices(dev_name: str, daemon_payloads):
+    """The full-size paths; returns each path's launch counts and its
+    run (engine and last frame included).  ``daemon_payloads``, the
+    daemon-1080p pass's video payloads, must equal slice-1080p-chunk8's:
+    the same frames at the same qindex in the same config."""
     import numpy as np
 
     from av1tpu_torch.spec_engine import noise_floor
@@ -857,6 +877,11 @@ def phase_slices(dev_name: str):
     decode_async("slice-1080p-chunk8", c["payloads"], c["recons"],
                  f"all {len(grain9)} frames")
     counts["slice-1080p-chunk8"] = c["launches"]
+    if daemon_payloads != c["payloads"]:
+        fail("daemon-1080p: the daemon's payloads differ from "
+             "slice-1080p-chunk8's")
+    log("daemon-1080p: the daemon's 9 payloads equal slice-1080p-chunk8's "
+        "byte for byte")
 
     # two references: scene A, five blends towards scene B (each step
     # under the scene-cut threshold), then a cut back to A
@@ -1347,6 +1372,209 @@ def phase_conform(dev_name: str):
         "the GPU kernels give byte-identical streams")
 
 
+def source_decoders() -> str:
+    """Which source decoders this machine has: the system's libavcodec
+    (``ldconfig -p``), the port's native decoder built on it, and cv2."""
+    import importlib.util
+
+    from av1tpu_torch.media import avdec
+    try:
+        res = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                             text=True, timeout=60)
+        libs = sorted({ln.split()[0] for ln in res.stdout.splitlines()
+                       if "avcodec" in ln})
+    except OSError as e:
+        libs = [f"ldconfig failed: {e}"]
+    return (f"libavcodec {libs or 'none'}, the port's native decoder "
+            f"{'available' if avdec.available() else 'unavailable'}, cv2 "
+            f"{'importable' if importlib.util.find_spec('cv2') else 'absent'}")
+
+
+def phase_daemon(card: str) -> dict:
+    """daemon-1080p: one pass of the port's daemon, run_once(cfg) with
+    engine=None, exactly as ``python3 -m av1tpu_torch.daemon.main``
+    runs it: the engine is built on the card and passes its 1280x720
+    self-test, then the library is scanned, the file probed and
+    classified, its job written, transcoded in TpuEncoderConfig()
+    (chunk=8, delta_upload, golden, CDEF, LR), size-gated,
+    decode-verified and atomically replaced.  The library holds one file:
+    the 9 grainy 1920x1080 frames of slice-1080p-chunk8 as a y4m stream
+    named clip.mkv (the scan filters by extension; probe and source
+    decode dispatch on the y4m magic, the one source the daemon decodes
+    on a machine without cv2 or libavcodec).  The launch counts are set
+    to 0 just before the pass and read just after."""
+    import logging
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from av1tpu_torch import config, jobs
+    from av1tpu_torch.daemon import core
+    from av1tpu_torch.daemon import engine as engine_mod
+    from av1tpu_torch.daemon import main as daemon_main
+    from av1tpu_torch.encoder import io_pack
+    from av1tpu_torch.media import mkv, y4m
+    name = "daemon-1080p"
+    W, H = SIZES["1080p"]
+    rng = np.random.default_rng(7)
+    frames = [grainy_frame(W, H, i, rng) for i in range(9)]
+    root = tempfile.mkdtemp(prefix="av1torch-daemon-")
+    lib = os.path.join(root, "library")
+    os.makedirs(lib)
+    src = os.path.join(lib, "clip.mkv")
+    y4m.write(src, [(f.y, f.u, f.v) for f in frames])
+    orig = os.path.getsize(src)
+    log(f"{name}: source decoders on this machine: {source_decoders()}")
+    log(f"{name}: library {lib}: clip.mkv, a y4m stream of {len(frames)} "
+        f"grainy {W}x{H} frames, {orig} bytes")
+    cfg = config.default_config()
+    cfg.library_roots = [lib]
+    cfg.min_bytes = 1000
+    cfg.job_state_dir = os.path.join(root, "jobs")
+    if cfg.tpu != config.TpuEncoderConfig():
+        fail(f"{name}: the tpu section is not the default: {cfg.tpu}")
+
+    seen = {"engines": [], "selftest": [], "verify": [], "payloads": [],
+            "packs": [], "transcode": []}
+    real = {"make": engine_mod.make_engine, "self": engine_mod.verify_engine,
+            "verify": core.verify_output_av1, "pack": io_pack.pack_chunk}
+
+    def make_spy(*a, **k):
+        eng = real["make"](*a, **k)
+        seen["engines"].append(eng)
+        stream, transcode = eng.encode_stream, eng.transcode
+
+        def encode_stream(*sa, **sk):
+            for payload, key in stream(*sa, **sk):
+                seen["payloads"].append(payload)
+                yield payload, key
+
+        def timed_transcode(*ta, **tk):
+            seen["first_recon"] = len(recons)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            transcode(*ta, **tk)
+            torch.cuda.synchronize()
+            seen["transcode"].append(time.perf_counter() - t)
+
+        eng.encode_stream, eng.transcode = encode_stream, timed_transcode
+        return eng
+
+    def selftest_spy(eng, size="1280x720"):
+        try:
+            dt = real["self"](eng, size)
+        except Exception as e:
+            seen["selftest"].append(e)
+            raise
+        seen["selftest"].append(dt)
+        return dt
+
+    def verify_spy(path, *a, **k):
+        res = real["verify"](path, *a, **k)
+        seen["verify"].append(res)
+        return res
+
+    def pack_spy(*a, **k):
+        res = real["pack"](*a, **k)
+        seen["packs"].append(res is not None)
+        return res
+
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter(f"{name}: [%(name)s] %(message)s"))
+    pkg_log = logging.getLogger("av1tpu_torch")
+    pkg_log.addHandler(handler)
+    pkg_log.setLevel(logging.INFO)
+    counters = _counters()
+    engine_mod.make_engine, engine_mod.verify_engine = make_spy, selftest_spy
+    core.verify_output_av1, io_pack.pack_chunk = verify_spy, pack_spy
+    try:
+        with capture_recons() as recons:
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = daemon_main.run_once(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        engine_mod.make_engine, engine_mod.verify_engine = real["make"], \
+            real["self"]
+        core.verify_output_av1, io_pack.pack_chunk = real["verify"], \
+            real["pack"]
+        pkg_log.removeHandler(handler)
+    if len(seen["engines"]) != 1:
+        fail(f"{name}: {len(seen['engines'])} engines built")
+    eng = seen["engines"][0]
+    if eng.device.type != "cuda":
+        fail(f"{name}: the daemon's engine runs on {eng.device}")
+    if len(seen["selftest"]) != 1 or not isinstance(seen["selftest"][0],
+                                                     float):
+        fail(f"{name}: self-test {seen['selftest']}")
+    if result.candidates != [src]:
+        fail(f"{name}: scan candidates {result.candidates}, skipped "
+             f"{[(s.path, s.reason) for s in result.skipped]}")
+    found = jobs.load_all_jobs(cfg.job_state_dir)
+    if len(found) != 1:
+        fail(f"{name}: {len(found)} job records")
+    job = found[0]
+    if job.status != jobs.STATUS_SUCCESS or job.encoded_frames != 9:
+        fail(f"{name}: job {job.status} ({job.reason!r}), "
+             f"{job.encoded_frames} frames encoded")
+    size = os.path.getsize(src)
+    with open(src, "rb") as f:
+        magic = f.read(4)
+    if magic != b"\x1a\x45\xdf\xa3" or size != job.new_bytes:
+        fail(f"{name}: clip.mkv begins {magic!r}, {size} bytes, the job "
+             f"says {job.new_bytes}")
+    with open(src, "rb") as f:
+        m = mkv.parse(f)
+        video = [t for t in m.tracks if t.codec_id == "V_AV1"]
+        if len(video) != 1:
+            fail(f"{name}: tracks {[t.codec_id for t in m.tracks]}")
+        muxed = [bytes(p.data) for p in mkv.iter_packets(f, m)
+                 if p.track_number == video[0].number]
+    if muxed != seen["payloads"] or len(muxed) != 9:
+        fail(f"{name}: {len(muxed)} muxed video payloads differ from the "
+             f"{len(seen['payloads'])} that encode_stream yielded")
+    n_p = len(muxed) - 1
+    need_launches(name, launches,
+                  ("gather_windows", "gather_windows2", "refine_ssd"))
+    need_k1_launches(name, launches, n_p, 3, 5)
+    if launches["refine_ssd"] != 3 * n_p:
+        fail(f"{name}: K2 launches {launches['refine_ssd']} over {n_p} "
+             "P-frames, expected 3 a frame")
+    stream_recons = recons[seen["first_recon"]:]
+    decode_async(name, muxed, stream_recons, f"all {len(muxed)} frames of "
+                 "the replaced file")
+    ok, why = seen["verify"][0] if len(seen["verify"]) == 1 else (False, "?")
+    if not ok:
+        fail(f"{name}: decode-verify {seen['verify']}")
+    verdict = ("libaom decoded the leading packets" if why.startswith(
+        "decoded") else "no independent decoder (libaom absent): "
+        "soft pass")
+    log(f"{name}: job success, 9 frames, clip.mkv replaced by Matroska "
+        f"({size} bytes, its V_AV1 payloads are encode_stream's); "
+        f"decode-verify: {verdict} ({why})")
+    log(f"{name}: self-test {seen['selftest'][0]:.3f} s "
+        f"({cfg.tpu.self_test_size} key) | "
+        f"{card}")
+    log(f"{name}: transcode wall {seen['transcode'][0]:.3f} s, run_once "
+        f"wall {wall:.3f} s (scan, self-test, 10 s stability wait, "
+        f"transcode, gate, verify, replace) | {card}")
+    log(f"{name}: job encode_fps {job.encode_fps:.4f} | {card}")
+    log(f"{name}: size ratio {size / orig:.6f} ({size} / {orig} bytes) | "
+        f"{card}")
+    log(f"{name}: chunk uploads "
+        f"{['packed' if x else 'raw' for x in seen['packs']]} | {card}")
+    log(f"{name}: launches {launches}, per P-frame "
+        f"{ {k: round(v / n_p, 2) for k, v in launches.items()} }")
+    shutil.rmtree(root)
+    return {"launches": launches, "payloads": muxed}
+
+
 def kernel_entry(name, source, replaces, counts, err, rows):
     """One kernel of the JSON line: the first (1080p) shape's numbers at
     the top level, every shape of every frame size under "shapes", each
@@ -1382,7 +1610,9 @@ def main() -> int:
     phase_build()
     k1_err, k1_rows, k2_err, k2_rows, g2_err, g2_rows = phase_kernels(
         torch.device(dev_name))
-    counts, runs = phase_slices(dev_name)
+    daemon = phase_daemon(card)
+    counts, runs = phase_slices(dev_name, daemon["payloads"])
+    counts["daemon-1080p"] = daemon["launches"]
     if "--profile" in sys.argv[1:]:
         phase_profile(runs)
     phase_conform(dev_name)

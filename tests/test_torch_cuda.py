@@ -352,3 +352,16 @@ def test_gpu_golden_deblock_stream_equals_cpu_stream(cuda):
     n1 = (gather.gather_windows.launches, gather.gather_windows2.launches,
           refine.refine_ssd.launches)
     assert all(b > a for a, b in zip(n0, n1))
+
+
+@pytest.mark.cuda
+def test_daemon_make_engine_on_card(cuda):
+    """The daemon's engine factory builds the card engine by default,
+    and its startup self-test (one 1280x720 keyframe) passes."""
+    from av1tpu_torch import config
+    from av1tpu_torch.daemon import engine
+    from av1tpu_torch.spec_engine import SpecTorchEngine
+    eng = engine.make_engine(config.default_config())
+    assert isinstance(eng, SpecTorchEngine) and eng.device.type == "cuda"
+    dt = engine.verify_engine(eng, "1280x720")
+    assert isinstance(dt, float) and dt > 0

@@ -115,9 +115,12 @@ def test_port_imports_no_jax():
 def test_port_encode_decode_loads_no_av1tpu():
     """A clean 64x64 key + P encode on the CPU with golden on (two
     references, loop filter on), decoded by the port's own spec decoder,
-    loads neither jax nor any module of av1tpu."""
+    and one pass of the port's daemon (``run_once``: scan, probe,
+    transcode, size gate, decode-verify, atomic replace) over a library
+    holding a 64x64 y4m stream named ``.mkv``, load neither jax nor any
+    module of av1tpu."""
     code = (
-        "import sys\n"
+        "import os, sys, tempfile\n"
         "import numpy as np\n"
         "from av1tpu_torch.config import TpuEncoderConfig\n"
         "from av1tpu_torch.spec_engine import SpecTorchEngine\n"
@@ -132,6 +135,22 @@ def test_port_encode_decode_loads_no_av1tpu():
         "assert [k for _, k in out] == [True, False] and len(dec) == 2\n"
         "for d, r in zip(dec[1], eng._ref):\n"
         "    assert np.array_equal(d, r[:d.shape[0], :d.shape[1]])\n"
+        "from av1tpu_torch import config, jobs, scan\n"
+        "from av1tpu_torch.daemon import engine as E, main as M\n"
+        "from av1tpu_torch.media import y4m\n"
+        "stable = scan.check_file_stable\n"
+        "scan.check_file_stable = lambda p, w: stable(p, 0.01)\n"
+        "d = tempfile.mkdtemp()\n"
+        "os.mkdir(os.path.join(d, 'lib'))\n"
+        "src = os.path.join(d, 'lib', 'clip.mkv')\n"
+        "y4m.write(src, [(f.y, f.u, f.v) for f in fr])\n"
+        "cfg = config.TranscodeConfig(library_roots=[os.path.join(d, "
+        "'lib')], min_bytes=1000, job_state_dir=os.path.join(d, 'jobs'))\n"
+        "M.run_once(cfg, engine=E.make_engine(cfg, device='cpu'))\n"
+        "(job,) = jobs.load_all_jobs(cfg.job_state_dir)\n"
+        "assert job.status == 'success' and job.encoded_frames == 2, "
+        "job.reason\n"
+        "assert open(src, 'rb').read(4) == b'\\x1a\\x45\\xdf\\xa3'\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'av1tpu') or "
         "m.startswith(('jax.', 'av1tpu.')))\n"
         "assert not bad, bad\n"
