@@ -35,7 +35,7 @@ class TpuEncoderConfig:
     bitstream: str = "spec"
     block_log2: int = 0        # 4=16px, 5=32px, 0=auto (32 at HD+)
     tile_rows_log2: int = 0    # extra tile rows (sharding raises this)
-    num_chips: int = 0         # 0 = all visible devices
+    num_chips: int = 0         # n >= 2: stripes on n devices; 0, 1: one
     speed: int = 6             # 0 (slowest/best) .. 9 (fastest)
     chunk: int = 8             # P-frames batched per device dispatch
     # quantizer rounding offset (deadzone: floor(|c|/q + 1 - qround)).

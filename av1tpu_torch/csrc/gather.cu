@@ -170,14 +170,18 @@ gather_kernel(Planes planes, int P, int hp, int wp,
   }
 }
 
+// The SM count of the current card (the wrapper makes the planes' card
+// current), kept per card: a process may launch on several.
 int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 1;
-  }
+  constexpr int kCards = 64;
+  static int counts[kCards] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < kCards && counts[dev] > 0) return counts[dev];
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (n <= 0) n = 1;
+  if (dev >= 0 && dev < kCards) counts[dev] = n;
   return n;
 }
 

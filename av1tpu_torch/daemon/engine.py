@@ -1,5 +1,5 @@
-# Copied from av1tpu/daemon/engine.py (one device; the engine is
-# SpecTorchEngine).
+# Copied from av1tpu/daemon/engine.py (the engine is SpecTorchEngine;
+# no multi-host initialization).
 """Engine bootstrap and self-test (the EnsureFFmpeg/VerifyFFmpeg analog).
 
 The reference downloads a static ffmpeg, verifies its version and encoder
@@ -10,8 +10,12 @@ unless the caller asks for the CPU), and "verify" runs the same hermetic
 smoke test: one synthetic 1280x720 frame through the full encode path
 (binary.go:282-295 analog).
 
-Multi-device stripes (the JAX package's ``distributed.maybe_initialize``
-and ``num_chips > 1``) are not ported; one device encodes.
+With ``tpu.num_chips`` = n >= 2 and more than one visible card, the
+engine encodes each frame in tile-row stripes over up to n cards, in
+this one process (``SpecTorchEngine``'s stripe group; 0, the default,
+keeps one card).  The JAX package's multi-host
+``distributed.maybe_initialize`` has no counterpart: the stripes need no
+process group.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ class EngineError(Exception):
 
 def make_engine(cfg, device: str = "cuda"):
     """Construct the configured engine ("tpu" is the only real engine)
-    on ``device``.  A missing card raises EngineError; nothing falls
+    on ``device``, striped over up to ``cfg.tpu.num_chips`` cards where
+    that is 2 or more.  A missing card raises EngineError; nothing falls
     back to the CPU unless the caller asks for it."""
     if cfg.encoder != "tpu":
         raise EngineError(

@@ -43,13 +43,21 @@ def set_numeric_flags() -> None:
 
 
 def resolve_device(device) -> torch.device:
-    """The torch.device for an explicit ``"cuda"``/``"cpu"`` request."""
+    """The torch.device for an explicit ``"cuda"``/``"cpu"`` request; a
+    card without an index is the current one (``cuda:N`` then)."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch reports no "
-                           "CUDA device")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {str(dev)!r} requested but torch "
+                               "reports no CUDA device")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"device {str(dev)!r} requested but torch "
+                               f"reports {torch.cuda.device_count()} CUDA "
+                               "device(s)")
     set_numeric_flags()
     return dev
 
@@ -137,5 +145,7 @@ def check_launch(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
 
 
-def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream_ptr(dev: torch.device) -> int:
+    """The current stream of card ``dev`` (not of the current card), as
+    the pointer a kernel's C entry takes."""
+    return torch.cuda.current_stream(dev).cuda_stream

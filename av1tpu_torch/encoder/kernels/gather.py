@@ -102,10 +102,13 @@ def _launch(planes, ri, oy, ox, W: int, P: int, name: str) -> torch.Tensor:
     vp = ctypes.c_void_p
     ptrs = [vp(p.data_ptr()) for p in planes] + [None] * (4 - len(planes))
     ri_p = None if ri is None else vp(idx[0].data_ptr())
-    err = D.kernels().av1_gather_windows(
-        *ptrs, P, 0 if p0.dtype == torch.int16 else 1, hp, wp, ri_p,
-        vp(idx[-2].data_ptr()), vp(idx[-1].data_ptr()), B, W,
-        vp(out.data_ptr()), vp(D.stream_ptr()))
+    # the launch goes to the planes' card and its current stream, whichever
+    # card is current on this thread
+    with torch.cuda.device(p0.device):
+        err = D.kernels().av1_gather_windows(
+            *ptrs, P, 0 if p0.dtype == torch.int16 else 1, hp, wp, ri_p,
+            vp(idx[-2].data_ptr()), vp(idx[-1].data_ptr()), B, W,
+            vp(out.data_ptr()), vp(D.stream_ptr(p0.device)))
     D.check_launch(err, name)
     return out
 

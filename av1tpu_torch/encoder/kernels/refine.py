@@ -69,9 +69,12 @@ def _refine_cuda(blocks, regions, n, radius):
     ssd = torch.empty((B,), dtype=torch.float32, device=blocks.device)
     disp = torch.empty((B, 2), dtype=torch.int32, device=blocks.device)
     vp = ctypes.c_void_p
-    err = D.kernels().av1_refine_ssd(
-        vp(blocks.data_ptr()), vp(regions.data_ptr()), B, n, radius,
-        vp(ssd.data_ptr()), vp(disp.data_ptr()), vp(D.stream_ptr()))
+    # the launch goes to the blocks' card and its current stream
+    with torch.cuda.device(blocks.device):
+        err = D.kernels().av1_refine_ssd(
+            vp(blocks.data_ptr()), vp(regions.data_ptr()), B, n, radius,
+            vp(ssd.data_ptr()), vp(disp.data_ptr()),
+            vp(D.stream_ptr(blocks.device)))
     D.check_launch(err, "refine_ssd")
     refine_ssd.launches += 1
     return ssd, disp

@@ -9,9 +9,14 @@ writer plus header/OBU writer on the host.  The output is standard AV1
 in the same low-overhead framing as the JAX engine (keyframes carry
 [sequence header OBU][frame OBU]).
 
+On several devices (``num_chips`` >= 2, or an explicit tuple of stripe
+devices) each frame is encoded in horizontal stripes, one a device
+(``specav1.stripes``), and the stream is the one-device stream, byte for
+byte, as long as the tile plan is the same (up to 4 stripes).
+
 Supported configuration: the daemon's default (``TpuEncoderConfig()``:
 ``chunk=8``, ``delta_upload``, ``golden``, ``cdef`` and ``lr`` on) and
-each of those settings changed, on one device, 8- or 10-bit.  With
+each of those settings changed, 8- or 10-bit.  With
 ``golden`` the GOP keyframe's filtered reconstruction stays in
 reference slot 1 and every P-frame block picks LAST or GOLDEN.
 Deblocking is decided per GOP exactly as the JAX engine does: on for a
@@ -25,13 +30,14 @@ plane's per-unit Wiener choices and taps (frame restoration types
 
 A chunk is packed, uploaded and issued on an ordered one-worker
 dispatch thread while the caller's thread entropy-codes older
-dispatches; the worker issues onto the stream that was current on the
-submitting thread, so stream order keeps every later reader behind the
-chunk's work.
+dispatches; the worker issues onto the streams that were current on the
+submitting thread, one a device, so stream order keeps every later
+reader behind the chunk's work.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -44,7 +50,8 @@ from av1tpu_torch.engine import TorchEngine, _entropy_pool
 from av1tpu_torch.specav1 import lr as _NL
 from av1tpu_torch.specav1 import native
 from av1tpu_torch.specav1 import obu as obu_mod
-from av1tpu_torch.specav1 import recon, torch_inter, torch_intra, torch_lr
+from av1tpu_torch.specav1 import (recon, stripes, torch_inter, torch_intra,
+                                  torch_lr)
 from av1tpu_torch.specav1 import writer as W
 
 I32 = torch.int32
@@ -160,12 +167,23 @@ def _lr_table(choice_grid, taps6):
     return idx.astype(np.int32), tab
 
 
-def _tile_plan(th: int):
-    """(tile_rows_log2, spans, block_row_starts) for a coded height on
-    one device."""
+def _tile_plan(th: int, chips: int = 1):
+    """(tile_rows_log2, spans, block_row_starts) for a coded height.
+
+    chips > 4 raises the tile-row count so keyframe tile-row sharding
+    (stripes.key_stripe_plan needs n <= 2^trl2 dividing it) and
+    parallel host entropy keep one-or-more tiles per chip.  Tile rows
+    cost a few bits each (per-tile CDF reset), so the bump is
+    chip-count-conditioned, not default."""
     mi_rows = 2 * ((th + 7) >> 3)
     sbr = (mi_rows + 15) >> 4
     trl2 = 2 if sbr >= 8 else 0
+    if chips > 4 and sbr >= 8:
+        want = (chips - 1).bit_length()
+        max_l2 = 0
+        while (1 << (max_l2 + 1)) <= min(sbr, 64):
+            max_l2 += 1
+        trl2 = min(max(trl2, want), max_l2)
     spans = W.tile_row_spans(th, trl2)
     brs = tuple(mi0 // 8 for mi0, _ in spans[1:])
     return trl2, spans, brs
@@ -278,15 +296,22 @@ def unpack_planes_chunk(flat: torch.Tensor, k: int, ph: int, pw: int):
 def encode_chunk(src, refs, qindexes, lfys, lfuvs, damps, *, k: int,
                  ph: int, pw: int, bit_depth: int, th: int, tw: int,
                  cap: int, deblock: bool = False, qround: float = 0.70,
-                 cdef: bool = False, lr: bool = False, gld=None):
+                 cdef: bool = False, lr: bool = False, gld=None,
+                 group=None):
     """K consecutive P-frames as one dispatch (port of
-    spec_engine._encode_chunk; a Python loop stands in for lax.scan).
+    spec_engine._encode_chunk, and with ``group`` of
+    jax_sharded.encode_chunk_sharded; a Python loop stands in for
+    lax.scan).
 
     src: the raw flat upload, or the packed one as (nib, exc_pos,
     exc_val, modes, base_y, base_u, base_v) for io_pack.unpack_chunk;
     refs: the LAST reconstruction the first frame predicts from, each
     frame's recon the next one's; qindexes, lfys, lfuvs, damps: per-frame
-    ints; gld: the GOLDEN planes, the same for every frame.  Returns
+    ints; gld: the GOLDEN planes, the same for every frame.  With a
+    stripe ``group`` every frame is a striped step
+    (``stripes.encode_inter_striped``): its reference is the carried
+    recon split into row slices, and gld comes as row slices already.
+    Returns
     (the last recon, the packed outputs of pack_outputs over the whole
     chunk, the per-frame level planes (y, u, v lists, read on capacity
     overflow), the chunk's last source planes: the next chunk's delta
@@ -300,11 +325,18 @@ def encode_chunk(src, refs, qindexes, lfys, lfuvs, damps, *, k: int,
     lvs = ([], [], [])
     kept = []
     for i in range(k):
-        out = torch_inter.encode_frame(
-            ys[i], us[i], vs[i], *carry, int(qindexes[i]), bit_depth,
-            th=th, tw=tw, qround=qround, gld=gld, lf_y=int(lfys[i]),
-            lf_uv=int(lfuvs[i]), deblock=deblock, cdef=cdef,
-            cdef_damping=int(damps[i]), lr=lr)
+        kw = dict(th=th, tw=tw, qround=qround, gld=gld, lf_y=int(lfys[i]),
+                  lf_uv=int(lfuvs[i]), deblock=deblock, cdef=cdef,
+                  cdef_damping=int(damps[i]), lr=lr)
+        if group is None:
+            out = torch_inter.encode_frame(
+                ys[i], us[i], vs[i], *carry, int(qindexes[i]), bit_depth,
+                **kw)
+        else:
+            out = stripes.encode_inter_striped(
+                group, ys[i], us[i], vs[i],
+                [stripes.shard_rows(group, p) for p in carry],
+                int(qindexes[i]), bit_depth, **kw)
         carry = out[5:8]
         for j in range(3):
             lvs[j].append(out[2 + j])
@@ -329,30 +361,67 @@ def _upload(plane: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(plane, dt)).to(dev)
 
 
-def _base_fits(tri, ph: int, pw: int):
-    """The delta-upload base planes when they have the chunk's padded
-    shape, else None (port of _grow's width check: the host and device
-    bases must match exactly for the mod-2^bd delta chain; the striped
-    padding branch runs only on several devices)."""
-    return tri if tuple(tri[0].shape) == (ph, pw) else None
+def _pad_rows(tri, ph: int, edge: bool):
+    """A (y, u, v) plane triple (numpy or torch) grown to ph luma rows:
+    the last row repeated (``edge``, numpy's mode="edge") or zeros."""
+    d = ph - tri[0].shape[0]
+    if d == 0:
+        return tuple(tri)
+    out = []
+    for p, dp in zip(tri, (d, d // 2, d // 2)):
+        if isinstance(p, np.ndarray):
+            out.append(np.pad(p, ((0, dp), (0, 0)),
+                              mode="edge" if edge else "constant"))
+        elif edge:
+            out.append(torch_inter.edge_pad(p, 0, dp, 0, 0))
+        else:
+            out.append(torch.cat([p, p.new_zeros((dp, p.shape[1]))]))
+    return tuple(out)
+
+
+def _grow(tri, ph: int, pw: int):
+    """The delta-upload base planes edge-padded to the chunk's (ph, pw)
+    rows, or None when the widths disagree or the base is taller (the
+    host and device bases must match exactly for the mod-2^bd delta
+    chain)."""
+    if tri[0].shape[1] != pw or tri[0].shape[0] > ph:
+        return None
+    return _pad_rows(tri, ph, edge=True)
 
 
 class SpecTorchEngine(TorchEngine):
     """Standard-AV1 engine on PyTorch (see module docstring)."""
 
     def __init__(self, cfg: Optional[TpuEncoderConfig] = None,
-                 device: str = "cuda"):
+                 device: str = "cuda", stripe_devices=None):
+        """``device``: where the one-device path runs.  ``stripe_devices``:
+        the stripe group, one device a stripe, the first being ``device``
+        (repeats allowed: one card, or the CPU, then runs the striped
+        arithmetic); without it the group is ``cfg.num_chips`` devices
+        from ``device`` on (cards capped at the visible ones; the CPU
+        repeated)."""
         super().__init__(cfg)
         self.device = D.resolve_device(device)
         c = self.cfg
-        missing = []
-        if c.num_chips > 1:
-            missing.append("multi-device stripes (num_chips > 1)")
         if c.bitstream != "spec":
-            missing.append(f"bitstream {c.bitstream!r}")
-        if missing:
             raise NotImplementedError(
-                "not ported to av1tpu_torch yet: " + ", ".join(missing))
+                f"not ported to av1tpu_torch: bitstream {c.bitstream!r}")
+        if stripe_devices is None:
+            # 0 and 1 keep one device: stripes issued from one thread are
+            # slower on several cards than one card is alone (PERF.md)
+            n = int(c.num_chips)
+            if self.device.type == "cuda":
+                first = self.device.index
+                n = min(n, torch.cuda.device_count() - first)
+                stripe_devices = [torch.device("cuda", first + i)
+                                  for i in range(n)]
+            else:
+                stripe_devices = [self.device] * n
+        self._group = tuple(D.resolve_device(d) for d in stripe_devices)
+        if self._group and self._group[0] != self.device:
+            raise ValueError(f"the first stripe device {self._group[0]} is "
+                             f"not the engine's device {self.device}")
+        self._golden_parts = None  # (ph, GOLDEN row slices) when striped
         self._order_hint = 0
         self._dispatch = None  # ordered upload+dispatch worker (lazy)
         self._gop_deblock = False
@@ -384,6 +453,7 @@ class SpecTorchEngine(TorchEngine):
         if self._dispatch is not None:
             self._dispatch.submit(lambda: None).result()
         super().start_stream()
+        self._golden_parts = None
         self._order_hint = 0
         self._gop_deblock = False
         self._src_base_host = None
@@ -404,6 +474,29 @@ class SpecTorchEngine(TorchEngine):
             r = r()
             self._ref_dev = r
         return r
+
+    def _stripe_group(self, ph: int, th: int):
+        """The stripe devices for frames of padded height ph and coded
+        height th, or None for the one-device path (port of _stripe_mesh:
+        at least 2 stripes of at least 2 block rows each)."""
+        n = len(self._group)
+        return self._group if stripes.sharding_ok(ph, th, n) else None
+
+    def _resolve_golden(self, ph: int, group=None):
+        """The GOLDEN reference (the GOP keyframe's recon) padded to the
+        working height, and as row slices on the stripe devices with a
+        ``group``: golden is constant between keyframes, so the split is
+        made once a GOP.  None when the golden tool is off."""
+        if not self._golden or self._golden_dev is None:
+            return None
+        if self._golden_dev[0].shape[0] != ph:
+            self._golden_dev = _pad_rows(self._golden_dev, ph, edge=False)
+        if group is None:
+            return self._golden_dev
+        if self._golden_parts is None or self._golden_parts[0] != ph:
+            self._golden_parts = (ph, [stripes.shard_rows(group, p)
+                                       for p in self._golden_dev])
+        return self._golden_parts[1]
 
     def _chunk_cap(self, width: int, height: int, bit_depth: int) -> int:
         """K P-frames per chunk dispatch, capped as the JAX engine caps
@@ -450,29 +543,59 @@ class SpecTorchEngine(TorchEngine):
         damp = cdef_damping(qindex) if self._cdef else None
         filters = dict(lf_y=lfy, lf_uv=lfuv, deblock=self._gop_deblock,
                        cdef=self._cdef, cdef_damping=damp or 4, lr=self._lr)
+        group = self._stripe_group(ph, th)
+        chips = len(group) if group else 1
         if is_key:
-            _, _, brs = _tile_plan(th)
-            out = torch_intra.encode_frame(
-                yj, uj, vj, qindex, nbr=ph // 32, nbc=pw // 32,
-                bit_depth=bd, th=th, tw=tw, tile_row_starts=brs,
-                qround=self._qround, **filters)
+            trl2, _, brs = _tile_plan(th, chips)
+            kplan = stripes.key_stripe_plan(th, ph, chips, trl2) \
+                if group else None
+            if kplan is not None:
+                # tile-row-parallel keyframe: each device wavefronts its
+                # own tile rows; the strip and the filters run on the
+                # gathered recon, which is cropped back to ph rows
+                stripe_h, ph_s, local_brs = kplan
+                out = stripes.encode_key_striped(
+                    group, *_pad_rows((yj, uj, vj), ph_s, edge=True),
+                    qindex, bd, th, tw, stripe_h, local_brs,
+                    qround=self._qround, **filters)
+                rows = (ph, ph // 2, ph // 2) * 2 + (ph // 32,) * 9
+                out = tuple(o[:r] for o, r in zip(out, rows)) + out[15:]
+            else:
+                out = torch_intra.encode_frame(
+                    yj, uj, vj, qindex, nbr=ph // 32, nbc=pw // 32,
+                    bit_depth=bd, th=th, tw=tw, tile_row_starts=brs,
+                    qround=self._qround, **filters)
             # the filtered recon is both LAST and the GOP's GOLDEN
             self._ref_dev = out[0:3]
             self._golden_dev = out[0:3]
+            self._golden_parts = None
             grids = torch.cat([out[i].reshape(-1) for i in range(6, 19)])
             pk = pack_outputs(out[3], out[4], out[5], grids, cap)
             return ("key", qindex, w, h, th, tw, ph, pw, bd, oh, refresh,
-                    out, pk, cap, lfy, lfuv, damp, self._lr, self._golden)
+                    out, pk, cap, lfy, lfuv, damp, self._lr, self._golden,
+                    chips)
         refs = self._resolve_refs()
-        out = torch_inter.encode_frame(
-            yj, uj, vj, refs[0], refs[1], refs[2], qindex, bd, th=th, tw=tw,
-            qround=self._qround,
-            gld=self._golden_dev if self._golden else None, **filters)
+        if group:
+            # stripes need ph_s = stripe_pad(ph) rows: the source is edge-
+            # padded, the references zero-padded (the halo clamp never
+            # reads their pad rows); the recon keeps the pad rows
+            ph = stripes.stripe_pad(ph, chips)
+            out = stripes.encode_inter_striped(
+                group, *_pad_rows((yj, uj, vj), ph, edge=True),
+                [stripes.shard_rows(group, p)
+                 for p in _pad_rows(refs, ph, edge=False)],
+                qindex, bd, th=th, tw=tw, qround=self._qround,
+                gld=self._resolve_golden(ph, group), **filters)
+        else:
+            out = torch_inter.encode_frame(
+                yj, uj, vj, refs[0], refs[1], refs[2], qindex, bd, th=th,
+                tw=tw, qround=self._qround, gld=self._resolve_golden(ph),
+                **filters)
         if refresh:
             self._ref_dev = out[5:8]
         pk = pack_outputs(out[2], out[3], out[4], _inter_grids([out]), cap)
         return ("inter", qindex, w, h, th, tw, ph, pw, bd, oh, refresh,
-                out, pk, cap, lfy, lfuv, damp, self._lr, self._golden)
+                out, pk, cap, lfy, lfuv, damp, self._lr, self._golden, chips)
 
     def _submit_chunk(self, frames, qindexes):
         """K P-frames as one dispatch.  Packing, upload and launch issue
@@ -491,13 +614,19 @@ class SpecTorchEngine(TorchEngine):
         k = len(frames)
         ohs = [(self._order_hint + i) & 127 for i in range(k)]
         self._order_hint += k
+        group = self._stripe_group(ph, th)
+        if group:
+            # chunk x stripe: each frame padded to the stripe height; the
+            # chunk carries the recon at that height
+            ph = stripes.stripe_pad(ph, len(group))
+            planes = [_pad_rows(p, ph, edge=True) for p in planes]
         total = ph * pw + 2 * (ph // 2) * (pw // 2)
         cap = k * (total // SPARSE_CAP_FRACTION)
         ref_prev = self._ref_dev
         # golden is read on the submit thread: the keyframe that owns it
         # was submitted synchronously before this chunk, and reading it
         # inside the worker could race a later GOP's keyframe
-        gld = self._golden_dev if self._golden else None
+        gld = self._resolve_golden(ph, group)
         qi = [int(q) for q in qindexes]
         dbl = self._gop_deblock
         lf = [lf_levels(q, bd) if dbl else (0, 0) for q in qi]
@@ -511,26 +640,30 @@ class SpecTorchEngine(TorchEngine):
                     and base_host is not None and base_dev is not None)
         self._src_base_host = planes[-1]
         dev = self.device
-        # the worker issues onto the stream current here, so that stream
-        # order queues every later reader behind the chunk's work
-        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" \
-            else None
+        # the worker issues onto the streams current here, one a device,
+        # so that stream order queues every later reader behind the
+        # chunk's work (the current stream is per device and per thread)
+        streams = [torch.cuda.current_stream(d) for d in
+                   dict.fromkeys((dev,) + (group or ())) if d.type == "cuda"]
         kw = dict(k=k, ph=ph, pw=pw, bit_depth=bd, th=th, tw=tw, cap=cap,
                   deblock=dbl, qround=self._qround, cdef=self._cdef,
-                  lr=self._lr, gld=gld)
+                  lr=self._lr, gld=gld, group=group)
 
         def worker():
-            with torch.cuda.stream(stream):
+            with contextlib.ExitStack() as on_streams:
+                for st in streams:
+                    on_streams.enter_context(torch.cuda.stream(st))
                 refs = ref_prev() if callable(ref_prev) else ref_prev
+                refs = _pad_rows(refs, ph, edge=False)
                 src = None
                 if use_pack:
-                    bh = _base_fits(base_host, ph, pw)
+                    bh = _grow(base_host, ph, pw)
                     pk = (io_pack.pack_chunk(planes, bh, bit_depth=bd)
                           if bh is not None else None)
                     bdev = None
                     if pk is not None:
                         bdev = base_dev() if callable(base_dev) else base_dev
-                        bdev = _base_fits(tuple(bdev), ph, pw)
+                        bdev = _grow(tuple(bdev), ph, pw)
                     if bdev is not None:
                         nib, ep, ev, modes = pk
                         if ev.dtype == np.uint16:
@@ -547,14 +680,14 @@ class SpecTorchEngine(TorchEngine):
         self._ref_dev = lambda: fut.result()[0]
         self._src_base_dev = lambda: fut.result()[3]
         return (qi, w, h, th, tw, ph, pw, bd, ohs, k, fut, lf, damps,
-                self._lr, self._golden)
+                self._lr, self._golden, len(group) if group else 1)
 
     @staticmethod
     def _finalize_chunk(pending) -> list:
         """Materialize a chunk and entropy-code its K frames on the
         entropy pool (copied from the JAX engine's _finalize_chunk)."""
         (qindexes, w, h, th, tw, ph, pw, bd, ohs, k, fut, lfs,
-         damps, lr_on, golden_on) = pending
+         damps, lr_on, golden_on, chips) = pending
         _, pk, full = fut.result()[:3]
         rs = (w, h) if (tw, th) != (w, h) else None
         mi_cols, mi_rows = 2 * ((tw + 7) >> 3), 2 * ((th + 7) >> 3)
@@ -562,7 +695,7 @@ class SpecTorchEngine(TorchEngine):
         gh, gw = ph // 32, pw // 32
         B = gh * gw
         ntot = ph * pw + 2 * (ph // 2) * (pw // 2)
-        trl2, spans, _ = _tile_plan(th)
+        trl2, spans, _ = _tile_plan(th, chips)
         maskbytes, vals, count, grids = (t.cpu().numpy() for t in pk)
         overflow = int(count) > vals.shape[0]
         if not overflow:
@@ -637,13 +770,13 @@ class SpecTorchEngine(TorchEngine):
         """Materialize a pending frame and entropy-code it (header and
         tile assembly copied from the JAX engine's _finalize)."""
         (kind, qindex, w, h, th, tw, ph, pw, bd, oh, refresh, out,
-         pk, cap, lfy, lfuv, cdamp, lr_on, golden_on) = pending
+         pk, cap, lfy, lfuv, cdamp, lr_on, golden_on, chips) = pending
         rs = (w, h) if (tw, th) != (w, h) else None
         mi_cols, mi_rows = 2 * ((tw + 7) >> 3), 2 * ((th + 7) >> 3)
         gh_t, gw_t = (mi_rows + 7) // 8, (mi_cols + 7) // 8
         gh, gw = ph // 32, pw // 32
         shapes = [(ph, pw), (ph // 2, pw // 2), (ph // 2, pw // 2)]
-        trl2, spans, _ = _tile_plan(th)
+        trl2, spans, _ = _tile_plan(th, chips)
         maskbytes, vals, count, grids = (t.cpu().numpy() for t in pk)
         lvs = _unpack_levels(maskbytes, vals, count, shapes)
         strip = (th % 32) == 16
@@ -759,10 +892,15 @@ class SpecTorchEngine(TorchEngine):
     def _prewarm(self, width: int, height: int, bit_depth: int = 8):
         """Build, before frames flow, what the first frame would
         otherwise build inside the timed path: the CUDA kernel library
-        (on the card) and the native tile writer.  The JAX engine
+        and a context on every card of the stripe group (the card's own
+        with one device), and the native tile writer.  The JAX engine
         compiles its XLA programs here; the port has nothing to compile.
         Nothing is encoded, so the rate controller and the reference
         chain are untouched and no output byte changes."""
-        if self.device.type == "cuda":
+        cards = [d for d in dict.fromkeys((self.device,) + self._group)
+                 if d.type == "cuda"]
+        if cards:
             D.kernels()
+        for d in cards:
+            torch.empty(1, device=d)
         native._lib()

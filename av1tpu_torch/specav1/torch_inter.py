@@ -18,10 +18,12 @@ CDEF strengths are searched and applied (``specav1.torch_cdef``), with
 ``lr`` the Wiener loop restoration is searched and applied per unit
 (``specav1.torch_lr``).
 
-The port covers no striping; ``split16`` and ``refine`` stay on.
-Arithmetic that JAX runs in int32 (including the reference's ``int64``
-casts, which run as int32 with x64 off) runs in int32 here, wrap
-included.
+Inside a multi-device stripe (``stripe=True``, see ``specav1.stripes``)
+the frame is a row stripe of a taller one, and the frame-level stages
+(the 16-px strip, deblocking, CDEF, LR) are left to the gathered frame
+(``finish_frame``).  ``split16`` and ``refine`` stay on.  Arithmetic
+that JAX runs in int32 (including the reference's ``int64`` casts, which
+run as int32 with x64 off) runs in int32 here, wrap included.
 """
 
 from __future__ import annotations
@@ -255,11 +257,53 @@ def build_skip8(skip_blocks, strip_skip, th: int, tw: int, pw: int,
     return sk8[:fh8 // 8, :fw8 // 8]
 
 
+def finish_frame(src, rec, lvs, skip, split, skip16, q: Quantizer,
+                 bit_depth: int, th: int, tw: int, lf_y: int = 0,
+                 lf_uv: int = 0, deblock: bool = False, cdef: bool = False,
+                 cdef_damping: int = 4, lr: bool = False):
+    """The frame-level stages after the block pass, in the reference's
+    order: the 16-px strip when th % 32 == 16 (written into ``rec`` and
+    ``lvs`` in place), deblocking, CDEF, then loop restoration.  src,
+    rec, lvs: (y, u, v) source, recon and level planes of the whole
+    padded frame; skip and split (gh, gw), skip16 (gh * gw, 4) the block
+    grids.  Returns (rec_y, rec_u, rec_v, strip_skip, cdefs, lr_choice,
+    lr_taps)."""
+    rec_y, rec_u, rec_v = rec
+    dev = rec_y.device
+    Wd = rec_y.shape[1]
+    strip = th % 32 == 16
+    if strip:
+        strip_skip = code_strip(src[0].to(I32), rec_y, rec_u, rec_v, *lvs,
+                                th, q, bit_depth)
+    else:
+        strip_skip = torch.zeros((2 * (Wd // 32),), dtype=I32, device=dev)
+    if deblock:
+        rec_y, rec_u, rec_v = loopfilter.deblock_frame(
+            rec_y, rec_u, rec_v, lf_y, lf_uv, lf_uv, bit_depth, th, tw,
+            split=split, strip=strip)
+    pre_cdef_y = rec_y  # post-deblock: the LR stripe-boundary source
+    if cdef:
+        skip8 = build_skip8(skip, strip_skip, th, tw, Wd, split=split,
+                            skip16=skip16)
+        rec_y, rec_u, rec_v, cdefs = torch_cdef.cdef_search_apply(
+            rec_y, rec_u, rec_v, *src, skip8, cdef_damping,
+            bit_depth=bit_depth, th=th, tw=tw)
+    else:
+        cdefs = torch.zeros((4,), dtype=I32, device=dev)
+    if lr:
+        rec_y, lr_choice, lr_taps = torch_lr.lr_search_apply(
+            rec_y, pre_cdef_y, src[0], bit_depth=bit_depth, th=th, tw=tw)
+    else:
+        lr_choice, lr_taps = lr_off_outputs(th, tw, dev)
+    return rec_y, rec_u, rec_v, strip_skip, cdefs, lr_choice, lr_taps
+
+
 def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
                  bit_depth: int, th: int = 0, tw: int = 0,
                  qround: float = 0.70, gld=None, lf_y: int = 0,
                  lf_uv: int = 0, deblock: bool = False, cdef: bool = False,
-                 cdef_damping: int = 4, lr: bool = False):
+                 cdef_damping: int = 4, lr: bool = False,
+                 stripe: bool = False, row0: int = 0):
     """One P-frame.  y/u/v: SB-padded source planes; ref_*: the previous
     reconstruction (int32, same padded shape).  Returns the reference's
     16-tuple (mvs (B,2) 1/8-pel, skips (B,), lv_y, lv_u, lv_v, rec_y,
@@ -278,7 +322,16 @@ def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
     cdef: then search and apply the CDEF frame strengths at damping
     cdef_damping (cdefs: [y_pri, y_sec, uv_pri, uv_sec]).  lr: then the
     per-unit Wiener search on luma, reading the post-deblock luma at
-    stripe boundaries (lr_choice, lr_taps; all off without it)."""
+    stripe boundaries (lr_choice, lr_taps; all off without it).
+
+    stripe: y/u/v are the row stripe of a taller frame that starts at
+    pixel row ``row0`` (a multiple of 32), th/tw the whole frame's coded
+    dims; the strip and the in-loop filters are left to the caller
+    (``finish_frame`` on the gathered frame), and strip_skip, cdefs and
+    the LR outputs come back off.  The reference planes (and ``gld``) are
+    then prebuilt padded windows covering padded-frame rows
+    [row0 - PAD, row0 + stripe height + PAD) (``stripes.halo_window``),
+    and block positions stay stripe-local."""
     dev = y.device
     H, Wd = y.shape
     n = 32
@@ -289,9 +342,12 @@ def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
     th = th or H
     tw = tw or Wd
 
-    ref_pad_y = prep_ref(ref_y, th, tw, PAD)
-    ref_pad_u = prep_ref(ref_u, th // 2, tw // 2, PAD // 2)
-    ref_pad_v = prep_ref(ref_v, th // 2, tw // 2, PAD // 2)
+    if stripe:
+        ref_pad_y, ref_pad_u, ref_pad_v = ref_y, ref_u, ref_v
+    else:
+        ref_pad_y = prep_ref(ref_y, th, tw, PAD)
+        ref_pad_u = prep_ref(ref_u, th // 2, tw // 2, PAD // 2)
+        ref_pad_v = prep_ref(ref_v, th // 2, tw // 2, PAD // 2)
 
     src_y = y.to(I32)
     blocks = _blockify(src_y, n, gh, gw)
@@ -302,9 +358,12 @@ def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
     c_l = ref_pad_y[PAD:PAD + H, PAD:PAD + Wd].to(I32)
     gld_pad_y = gld_pad_u = gld_pad_v = refsel = c_g = None
     if gld is not None:
-        gld_pad_y = prep_ref(gld[0], th, tw, PAD)
-        gld_pad_u = prep_ref(gld[1], th // 2, tw // 2, PAD // 2)
-        gld_pad_v = prep_ref(gld[2], th // 2, tw // 2, PAD // 2)
+        if stripe:
+            gld_pad_y, gld_pad_u, gld_pad_v = gld
+        else:
+            gld_pad_y = prep_ref(gld[0], th, tw, PAD)
+            gld_pad_u = prep_ref(gld[1], th // 2, tw // 2, PAD // 2)
+            gld_pad_v = prep_ref(gld[2], th // 2, tw // 2, PAD // 2)
         c_g = gld_pad_y[PAD:PAD + H, PAD:PAD + Wd].to(I32)
         # GOLDEN at the zero MV against LAST at its full-pel winner, in
         # int32 like the reference (the golden SSD passes through
@@ -420,7 +479,7 @@ def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
     # only blocks fully inside the coded mi grid may split
     mi_rows_t = 2 * ((th + 7) >> 3)
     mi_cols_t = 2 * ((tw + 7) >> 3)
-    bi = torch.arange(B, device=dev) // gw
+    bi = torch.arange(B, device=dev) // gw + row0 // 32
     bj = torch.arange(B, device=dev) % gw
     inside = ((bi + 1) * 8 <= mi_rows_t) & ((bj + 1) * 8 <= mi_cols_t)
     split = (cost16 < cost32) & inside
@@ -441,30 +500,17 @@ def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
     skip16_z = quads(skip16)
     split = split.to(I32)
 
-    nsc = 2 * (Wd // 32)
-    if th % 32 == 16:
-        strip_skip = code_strip(src_y, rec_y_p, rec_u_p, rec_v_p, lv_y_p,
-                                lv_u_p, lv_v_p, th, q, bit_depth)
-    else:
-        strip_skip = torch.zeros((nsc,), dtype=I32, device=dev)
-    if deblock:
-        rec_y_p, rec_u_p, rec_v_p = loopfilter.deblock_frame(
-            rec_y_p, rec_u_p, rec_v_p, lf_y, lf_uv, lf_uv, bit_depth, th,
-            tw, split=split.reshape(gh, gw), strip=(th % 32 == 16))
-    pre_cdef_y = rec_y_p  # post-deblock: the LR stripe-boundary source
-    if cdef:
-        skip8 = build_skip8(skip.reshape(gh, gw), strip_skip, th, tw, Wd,
-                            split=split, skip16=skip16_z)
-        rec_y_p, rec_u_p, rec_v_p, cdefs = torch_cdef.cdef_search_apply(
-            rec_y_p, rec_u_p, rec_v_p, y, u, v, skip8, cdef_damping,
-            bit_depth=bit_depth, th=th, tw=tw)
-    else:
+    if stripe:
+        strip_skip = torch.zeros((2 * (Wd // 32),), dtype=I32, device=dev)
         cdefs = torch.zeros((4,), dtype=I32, device=dev)
-    if lr:
-        rec_y_p, lr_choice, lr_taps = torch_lr.lr_search_apply(
-            rec_y_p, pre_cdef_y, y, bit_depth=bit_depth, th=th, tw=tw)
-    else:
         lr_choice, lr_taps = lr_off_outputs(th, tw, dev)
+    else:
+        rec_y_p, rec_u_p, rec_v_p, strip_skip, cdefs, lr_choice, lr_taps = \
+            finish_frame((y, u, v), (rec_y_p, rec_u_p, rec_v_p),
+                         (lv_y_p, lv_u_p, lv_v_p), skip.reshape(gh, gw),
+                         split.reshape(gh, gw), skip16_z, q, bit_depth, th,
+                         tw, lf_y=lf_y, lf_uv=lf_uv, deblock=deblock,
+                         cdef=cdef, cdef_damping=cdef_damping, lr=lr)
     if refsel is None:
         refsel = torch.zeros((B,), dtype=I32, device=dev)
     return (mv8, skip, lv_y_p, lv_u_p, lv_v_p, rec_y_p, rec_u_p, rec_v_p,

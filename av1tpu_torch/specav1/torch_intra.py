@@ -25,8 +25,7 @@ import numpy as np
 import torch
 
 from av1tpu_torch.encoder.kernels.motion import first_argmin
-from av1tpu_torch.specav1 import (loopfilter, recon, torch_cdef, torch_inter,
-                                  torch_lr)
+from av1tpu_torch.specav1 import recon, torch_inter
 from av1tpu_torch.specav1.tile import MODE_TO_TXFM
 from av1tpu_torch.specav1.transforms import (Quantizer, fwd_mat,
                                              inv_tx2d_add,
@@ -596,7 +595,8 @@ def encode_frame(y, u, v, qindex: int, nbr: int, nbc: int, bit_depth: int,
                  th: int = 0, tw: int = 0, tile_row_starts: tuple = (),
                  qround: float = 0.70, lf_y: int = 0, lf_uv: int = 0,
                  deblock: bool = False, cdef: bool = False,
-                 cdef_damping: int = 4, lr: bool = False):
+                 cdef_damping: int = 4, lr: bool = False,
+                 fh_clamp: int = None):
     """One keyframe.  y/u/v: SB-padded source planes (nbr x nbc blocks
     of 32).  Returns the reference's 19-tuple: (rec_y, rec_u, rec_v,
     lv_y, lv_u, lv_v, mode, uv_mode, skip, angle, split, m16, uv16,
@@ -605,7 +605,12 @@ def encode_frame(y, u, v, qindex: int, nbr: int, nbc: int, bit_depth: int,
     placement); the returned reconstruction is then deblocked at levels
     lf_y / lf_uv with ``deblock``, CDEF-filtered at searched strengths
     (damping cdef_damping) with ``cdef``, and loop-restored per unit
-    with ``lr``."""
+    with ``lr``.
+
+    fh_clamp: the bottom edge-read clamp in place of the coded height
+    rounded up to 8 (the spec's MiRows * 4 bound): a keyframe stripe
+    (``stripes.encode_key_striped``) passes its share of the frame's, so
+    that the last stripe clamps at the true frame bottom."""
     dev = y.device
     H, Wd = nbr * 32, nbc * 32
     th = th or H
@@ -616,6 +621,7 @@ def encode_frame(y, u, v, qindex: int, nbr: int, nbc: int, bit_depth: int,
                        tuple(tile_row_starts))
     fh8 = ((th + 7) >> 3) << 3
     fw8 = ((tw + 7) >> 3) << 3
+    fh_c = fh8 if fh_clamp is None else fh_clamp
     ctx = _KeyCtx(qindex, bit_depth, qround, dev)
     src_y, src_u, src_v = y.to(I32), u.to(I32), v.to(I32)
     # the strip-sharing SB row bans bottom-left readers (see jax_intra)
@@ -636,13 +642,13 @@ def encode_frame(y, u, v, qindex: int, nbr: int, nbc: int, bit_depth: int,
         r, c, ntr, nbl = (plan[k][i, :nb] for k in ("r", "c", "ntr", "nbl"))
         ha, hl = plan["have_a"][i, :nb] > 0, plan["have_l"][i, :nb] > 0
         # only blocks fully inside the coded mi grid may split
-        split_ok = ((r + 1) * 32 <= fh8) & ((c + 1) * 32 <= fw8)
+        split_ok = ((r + 1) * 32 <= fh_c) & ((c + 1) * 32 <= fw8)
         strip_row = None
         if strip_same_sb:
             strip_row = r == nbr_main - 1
             split_ok = split_ok & ~strip_row
         outs = _block_step(ctx, rec_y, rec_u, rec_v, src_y, src_u, src_v,
-                           r, c, ha, hl, ntr, nbl, fh8, fw8, strip_row,
+                           r, c, ha, hl, ntr, nbl, fh_c, fw8, strip_row,
                            split_ok)
         for plane, blk, nn in zip(planes, outs[:6], (32, 16, 16) * 2):
             h, w = plane.shape
@@ -652,31 +658,11 @@ def encode_frame(y, u, v, qindex: int, nbr: int, nbc: int, bit_depth: int,
         mode, uv, angle, skip = outs[6:10]
         for g, val in zip(grids, (mode, uv, skip, angle) + outs[10:]):
             g[r, c] = val
-    nsc = 2 * nbc
-    if strip:
-        q = ctx.q
-        strip_skip = torch_inter.code_strip(src_y, rec_y, rec_u, rec_v,
-                                            lv_y, lv_u, lv_v, th, q,
-                                            bit_depth)
-    else:
-        strip_skip = torch.zeros((nsc,), dtype=I32, device=dev)
-    if deblock:
-        rec_y, rec_u, rec_v = loopfilter.deblock_frame(
-            rec_y, rec_u, rec_v, lf_y, lf_uv, lf_uv, bit_depth, th, tw,
-            split=grids[4], strip=strip)
-    pre_cdef_y = rec_y  # post-deblock: the LR stripe-boundary source
-    if cdef:
-        skip8 = torch_inter.build_skip8(grids[2], strip_skip, th, tw, Wd,
-                                        split=grids[4], skip16=grids[8])
-        rec_y, rec_u, rec_v, cdefs = torch_cdef.cdef_search_apply(
-            rec_y, rec_u, rec_v, y, u, v, skip8, cdef_damping,
-            bit_depth=bit_depth, th=th, tw=tw)
-    else:
-        cdefs = torch.zeros((4,), dtype=I32, device=dev)
-    if lr:
-        rec_y, lr_choice, lr_taps = torch_lr.lr_search_apply(
-            rec_y, pre_cdef_y, y, bit_depth=bit_depth, th=th, tw=tw)
-    else:
-        lr_choice, lr_taps = torch_inter.lr_off_outputs(th, tw, dev)
+    rec_y, rec_u, rec_v, strip_skip, cdefs, lr_choice, lr_taps = \
+        torch_inter.finish_frame((y, u, v), (rec_y, rec_u, rec_v),
+                                 (lv_y, lv_u, lv_v), grids[2], grids[4],
+                                 grids[8], ctx.q, bit_depth, th, tw,
+                                 lf_y=lf_y, lf_uv=lf_uv, deblock=deblock,
+                                 cdef=cdef, cdef_damping=cdef_damping, lr=lr)
     return (rec_y, rec_u, rec_v, lv_y, lv_u, lv_v, *grids, strip_skip,
             cdefs, lr_choice, lr_taps)

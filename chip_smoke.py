@@ -10,7 +10,10 @@ Phases (any failure exits non-zero; nothing is caught):
   3. kernels  K1 gather (one plane and the two-plane LAST/GOLDEN entry,
               each also with U and V in one launch) and K2 refine against
               their plain PyTorch versions at the shapes that the 1080p and
-              the 720p paths give them, 8- and 10-bit, exact equality, and
+              the 720p paths give them, and a stripe of each striped path
+              (1080p over 2 stripes: 544 rows, B=1020, windows 672 x 2048;
+              720p over 4: 192 rows, B=240, 320 x 1408), 8- and 10-bit,
+              exact equality, and
               K2's edge cases; kernel, plain and library milliseconds from
               CUDA events at each, beside the bound and the roofline share;
               K1 at random origins and at path-like ones (the block grid
@@ -74,14 +77,32 @@ Phases (any failure exits non-zero; nothing is caught):
               upload bytes packed against raw, submit-to-result and
               finalize ms, per run fps and peak device memory, and the
               first chunk's upload ms raw and packed
-  6. conform  256x144 streams (16-px strip) decoded by the port's own spec
+  6. stripes the multi-device stripe encode with every stripe on this card
+              (stripe devices ("cuda:0",) * n; halo copies between cards
+              are not exercised on one), with the launch counts set to 0
+              before each and read after:
+              stripes-1080p-chunk8 slice-1080p-chunk8's frames in
+                                  TpuEncoderConfig() over 2 stripes: a
+                                  striped keyframe and one chunk of 8
+                                  striped P-frames
+              stripes-720p-default slice-720p-default's frames over 4
+                                  stripes: the strip, deblocking, CDEF and
+                                  LR on the gathered recon, middle stripes
+                                  with halos on both sides
+              each must give its one-device cell's payloads and recon over
+              the coded frame, byte for byte, with K1 n x (3 + 5) and K2
+              n x 3 launches a P-frame; key and P ms beside the one-device
+              cell's
+  7. conform  256x144 streams (16-px strip) decoded by the port's own spec
               decoder must equal the port's reconstruction, and the CPU run
               of the port must give the same bytes: a grainy golden-off
               1 key + 3 P, a clean golden key A, inter B, inter A with
               the loop filter on and GOLDEN blocks, the grainy clip in
               the default config with CDEF and LR on, and a clean drift in
               the default config at chunk=3 (key, a packed chunk of 3, a
-              remainder of 1) through encode_stream
+              remainder of 1) through encode_stream; and a clean 256x256
+              drift at chunk=3 over 4 stripes, which must decode to its
+              recon and equal its CPU run and the one-device stream
 
 With --profile, one more P-frame of each golden path runs after the
 slices, timed with each in-loop filter stage (deblocking, CDEF, LR)
@@ -171,17 +192,24 @@ def bound_ms(nbytes: int, ops: int = 0) -> tuple[float, str]:
 # card encodes the next cells
 DECODE_WORKERS = 4
 
-# the frame sizes of the full-width paths; the kernels are held against
-# their plain versions at the shapes each of them gives
-SIZES = {"1080p": (1920, 1080), "720p": (1280, 720)}
+# the frame sizes of the full-width paths, and the stripe counts of the
+# striped ones (a stripe's kernels see its rows and its halo window); the
+# kernels are held against their plain versions at the shapes each of
+# them gives
+SIZES = {"1080p": (1920, 1080, 1), "720p": (1280, 720, 1),
+         "1080p/2 stripes": (1920, 1080, 2), "720p/4 stripes": (1280, 720, 4)}
 
 
-def geometry(w: int, h: int):
-    """What a w x h frame gives the kernels: the padded luma and chroma
-    plane shapes (the engine pads the frame to multiples of 64; 64 / 32
-    samples of border a side) and the block count of the 32-grid; the
-    16-grid has four times as many."""
+def geometry(w: int, h: int, n: int = 1):
+    """What a w x h frame, or each of its n stripes, gives the kernels:
+    the padded luma and chroma plane shapes (the engine pads the frame to
+    multiples of 64, then to n stripes of 32-row multiples; 64 / 32
+    samples of border a side, the halo rows of a stripe's window) and the
+    block count of the 32-grid; the 16-grid has four times as many."""
+    from av1tpu_torch.specav1 import stripes
     ph, pw = -(-h // 64) * 64, -(-w // 64) * 64
+    if n > 1:
+        ph = stripes.stripe_pad(ph, n) // n
     return ({"luma": (ph + 128, pw + 128),
              "chroma": (ph // 2 + 64, pw // 2 + 64)},
             (ph // 32) * (pw // 32))
@@ -338,8 +366,8 @@ def phase_kernels(dev):
     rng = np.random.default_rng(1)
     k1_err, k1_rows, g2_err, g2_rows = 0, [], 0, []
     k2_err, k2_rows = 0.0, []
-    for sname, (w, h) in SIZES.items():
-        planes, b32 = geometry(w, h)
+    for sname, (w, h, n_stripes) in SIZES.items():
+        planes, b32 = geometry(w, h, n_stripes)
         err, rows = phase_gather1(dev, rng, sname, planes, b32)
         k1_err, k1_rows = max(k1_err, err), k1_rows + rows
         err, rows = phase_gather2(dev, rng, sname, planes, b32)
@@ -367,7 +395,7 @@ def phase_kernels(dev):
                     log(f"K2 refine {sname} n={n} B={B} 10-bit: kernel "
                         f"{ms:.4f} ms  bound {bms:.4f} ({by})  share "
                         f"{bms / ms:.3f}")
-    sizes = " and ".join(SIZES)
+    sizes = ", ".join(SIZES)
     log(f"K1 equal to plain and to the library call at all shapes of "
         f"{sizes}, 8/10-bit, one plane and U+V in one launch (max_abs_err "
         f"{k1_err})")
@@ -822,17 +850,18 @@ def check_filter_headers(name: str, r: dict) -> None:
 
 
 def phase_slices(dev_name: str, daemon_payloads):
-    """The full-size paths; returns each path's launch counts and its
-    run (engine and last frame included).  ``daemon_payloads``, the
-    daemon-1080p pass's video payloads, must equal slice-1080p-chunk8's:
-    the same frames at the same qindex in the same config."""
+    """The full-size paths; returns each path's launch counts, its run
+    (engine and last frame included), and what the stripe cells compare
+    with (``phase_stripes``).  ``daemon_payloads``, the daemon-1080p
+    pass's video payloads, must equal slice-1080p-chunk8's: the same
+    frames at the same qindex in the same config."""
     import numpy as np
 
     from av1tpu_torch.spec_engine import noise_floor
     from av1tpu_torch.utils.cleansrc import clean_frame
     from av1tpu_torch.utils.testsrc import Frame
-    W, H = SIZES["1080p"]
-    counts, runs = {}, {}
+    W, H, _ = SIZES["1080p"]
+    counts, runs, refs = {}, {}, {}
 
     # one reference, grainy: the earlier slice at a smaller depth
     rng = np.random.default_rng(7)
@@ -877,6 +906,8 @@ def phase_slices(dev_name: str, daemon_payloads):
     decode_async("slice-1080p-chunk8", c["payloads"], c["recons"],
                  f"all {len(grain9)} frames")
     counts["slice-1080p-chunk8"] = c["launches"]
+    refs["slice-1080p-chunk8"] = {**c, "name": "slice-1080p-chunk8",
+                                  "frames": grain9}
     if daemon_payloads != c["payloads"]:
         fail("daemon-1080p: the daemon's payloads differ from "
              "slice-1080p-chunk8's")
@@ -912,7 +943,7 @@ def phase_slices(dev_name: str, daemon_payloads):
     runs["slice-1080p-golden"] = r
 
     # clean 720p: 720 % 32 == 16 and 1280 % 16 == 0, so the GOP filters
-    W, H = SIZES["720p"]
+    W, H, _ = SIZES["720p"]
     frames = [clean_frame(W, H, i, 0) for i in range(4)]
     if noise_floor(frames[0].y) > 1.0:
         fail("clean 720p clip's noise floor is above 1")
@@ -947,6 +978,11 @@ def phase_slices(dev_name: str, daemon_payloads):
     decode_check("slice-720p-default", r)
     counts["slice-720p-default"] = r["launches"]
     runs["slice-720p-default"] = r
+    rows = r["eng"].rows
+    refs["slice-720p-default"] = {
+        "name": "slice-720p-default", "frames": frames,
+        "payloads": [p for p, _ in r["out"]], "recons": [x[3] for x in rows],
+        "key_ms": rows[0][1], "p_ms": np.mean([x[1] for x in rows[1:]])}
 
     # the default config exactly on the clean 720p drift: 1 key + 16 P,
     # two full chunks of 8, both through the packed upload
@@ -955,36 +991,82 @@ def phase_slices(dev_name: str, daemon_payloads):
     decode_async("slice-720p-chunk8", c["payloads"], c["recons"],
                  f"all {len(frames)} frames")
     counts["slice-720p-chunk8"] = c["launches"]
-    return counts, runs
+    return counts, runs, refs
+
+
+def phase_stripes(dev_name: str, card: str, refs: dict) -> dict:
+    """The stripe cells: the daemon's default job on a multi-card host,
+    its stripes all on this one card.  stripes-1080p-chunk8 runs
+    slice-1080p-chunk8's 9 grainy frames in TpuEncoderConfig() over 2
+    stripes (a striped keyframe, two tile rows a stripe, and one raw chunk
+    of 8 striped P-frames); stripes-720p-default slice-720p-default's
+    clean 1 key + 3 P in TpuEncoderConfig(chunk=1) over 4 stripes (the
+    strip, deblocking, CDEF and LR on the gathered recon; the middle
+    stripes read halos from both sides).  Returns their launch counts."""
+    from av1tpu_torch.config import TpuEncoderConfig
+    counts = {}
+    for name, cfg, n, ref in (
+            ("stripes-1080p-chunk8", TpuEncoderConfig(), 2,
+             refs["slice-1080p-chunk8"]),
+            ("stripes-720p-default", TpuEncoderConfig(chunk=1), 4,
+             refs["slice-720p-default"])):
+        counts[name] = run_stripe_cell(name, ref["frames"], cfg, n, dev_name,
+                                       card, ref)["launches"]
+    return counts
+
+
+class Recons(list):
+    """Each frame's reconstruction in dispatch order, and how many frames
+    went through each stripes entry (``striped``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.striped = {"key": 0, "inter": 0}
 
 
 @contextlib.contextmanager
 def capture_recons():
     """Collects each frame's reconstruction (int16 copies on the
-    device) in dispatch order while the block runs, from the keyframe
-    and P-frame encoders wherever they are called: on the caller's
-    thread or on the chunk dispatch worker."""
+    device) in dispatch order while the block runs, from the outermost
+    encoder call that makes it, wherever it is called (on the caller's
+    thread or on the chunk dispatch worker): the keyframe or P-frame
+    encoder, or a stripes entry, which calls them once a stripe and
+    returns the frame."""
+    import threading
+
     import torch
 
-    from av1tpu_torch.specav1 import torch_inter, torch_intra
-    recons = []
-    real = {torch_intra: torch_intra.encode_frame,
-            torch_inter: torch_inter.encode_frame}
+    from av1tpu_torch.specav1 import stripes, torch_inter, torch_intra
+    recons = Recons()
+    inside = threading.local()
+    entries = {(torch_intra, "encode_frame"): (None, slice(0, 3)),
+               (torch_inter, "encode_frame"): (None, slice(5, 8)),
+               (stripes, "encode_key_striped"): ("key", slice(0, 3)),
+               (stripes, "encode_inter_striped"): ("inter", slice(5, 8))}
+    real = {key: getattr(*key) for key in entries}
 
-    def spy(mod, sl):
+    def spy(fn, kind, sl):
         def call(*a, **k):
-            out = real[mod](*a, **k)
-            recons.append(tuple(p.to(torch.int16) for p in out[sl]))
+            depth = getattr(inside, "depth", 0)
+            inside.depth = depth + 1
+            try:
+                out = fn(*a, **k)
+            finally:
+                inside.depth = depth
+            if depth == 0:
+                recons.append(tuple(p.to(torch.int16) for p in out[sl]))
+                if kind:
+                    recons.striped[kind] += 1
             return out
         return call
 
-    torch_intra.encode_frame = spy(torch_intra, slice(0, 3))
-    torch_inter.encode_frame = spy(torch_inter, slice(5, 8))
+    for (mod, name), (kind, sl) in entries.items():
+        setattr(mod, name, spy(real[mod, name], kind, sl))
     try:
         yield recons
     finally:
-        for mod, fn in real.items():
-            mod.encode_frame = fn
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
 
 
 def run_chunk_cell(name: str, frames, dev_name: str, packed: bool,
@@ -1015,9 +1097,17 @@ def run_chunk_cell(name: str, frames, dev_name: str, packed: bool,
             super().__init__(*a, **k)
             self.first_p, self.sub_t, self.res_ms = None, [], []
             self.fin_ms = {"key": [], "single": [], "chunk": []}
+            self.key_ms = []
 
         def _submit(self, frame, qindex, **kw):
-            if not kw.get("is_key") and self.first_p is None:
+            if kw.get("is_key"):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                pend = super()._submit(frame, qindex, **kw)
+                torch.cuda.synchronize()
+                self.key_ms.append((time.perf_counter() - t) * 1e3)
+                return pend
+            if self.first_p is None:
                 self.first_p = time.perf_counter()
             return super()._submit(frame, qindex, **kw)
 
@@ -1179,7 +1269,104 @@ def run_chunk_cell(name: str, frames, dev_name: str, packed: bool,
     log(f"{name}: launches {c8['launches']}, per P-frame "
         f"{ {kk: round(v / n_p, 2) for kk, v in c8['launches'].items()} }")
     return {"payloads": [p for p, _ in c8["out"]], "recons": c8["recons"],
-            "launches": c8["launches"]}
+            "launches": c8["launches"], "key_ms": c8["eng"].key_ms[0],
+            "p_ms": np.mean(c8["eng"].res_ms) / k}
+
+
+def run_stripe_cell(name: str, frames, cfg, n: int, dev_name: str, card: str,
+                    ref: dict, Q: int = 96) -> dict:
+    """One stream through encode_stream with n stripes all on the card
+    (stripe devices (dev_name,) * n: the striped arithmetic, halo windows
+    and gathers, with every copy between stripes on one card), with the
+    launch counts set to 0 just before and read just after.  Its payloads
+    and its recon over the coded frame must equal ``ref``'s, the same
+    frames' one-device cell; K1 must launch n x (3 + 5) and K2 n x 3
+    times a P-frame.  Prints key and P ms beside the one-device cell's:
+    keys and single P-frames bracketed by synchronizes, a chunk's P-frames
+    as its submit-to-result ms over its length."""
+    import numpy as np
+    import torch
+
+    from av1tpu_torch.spec_engine import SpecTorchEngine
+    from av1tpu_torch.specav1 import stripes
+
+    class Timed(SpecTorchEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.key_ms, self.p_ms, self.sub_t = [], [], []
+            self.chunks_done = 0
+
+        def _submit(self, frame, qindex, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pend = super()._submit(frame, qindex, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            (self.key_ms if pend[0] == "key" else self.p_ms).append(ms)
+            return pend
+
+        def _submit_chunk(self, frames, qindexes):
+            self.sub_t.append(time.perf_counter())
+            return super()._submit_chunk(frames, qindexes)
+
+        def _finalize_chunk(self, pending):
+            t0 = self.sub_t[self.chunks_done]
+            self.chunks_done += 1
+            pending[10].result()
+            torch.cuda.synchronize()
+            k = pending[9]
+            self.p_ms += [(time.perf_counter() - t0) * 1e3 / k] * k
+            return super()._finalize_chunk(pending)
+
+    N = len(frames)
+    H, W = frames[0].height, frames[0].width
+    eng = Timed(cfg, device=dev_name, stripe_devices=(dev_name,) * n)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    with capture_recons() as recons:
+        t0 = time.perf_counter()
+        out = list(eng.encode_stream(frames, Q))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    keys = [k for _, k in out]
+    n_p = N - sum(keys)
+    payloads = [p for p, _ in out]
+    if payloads != ref["payloads"]:
+        bad = [i for i, (a, b) in enumerate(zip(payloads, ref["payloads"]))
+               if a != b]
+        fail(f"{name}: payloads differ from the one-device cell's at frames "
+             f"{bad} of {N}")
+    if recons.striped != {"key": sum(keys), "inter": n_p} or \
+            len(recons) != N:
+        fail(f"{name}: {recons.striped} striped of {N} frames ({len(recons)} "
+             "recons)")
+    for i, (a, b) in enumerate(zip(recons, ref["recons"])):
+        for pl, (pa, pb) in enumerate(zip(a, b)):
+            hh, ww = (H, W) if pl == 0 else (H // 2, W // 2)
+            if not torch.equal(pa[:hh, :ww], pb[:hh, :ww]):
+                fail(f"{name}: frame {i} plane {pl}: the recon differs from "
+                     "the one-device cell's")
+    need_k1_launches(name, launches, n_p, 3 * n, 5 * n)
+    if launches["refine_ssd"] != 3 * n * n_p:
+        fail(f"{name}: K2 launches {launches['refine_ssd']} over {n_p} "
+             f"P-frames, expected {3 * n} a frame")
+    sh = stripes.stripe_pad(-(-H // 64) * 64, n) // n
+    log(f"{name}: {n} stripes of {sh} rows on {dev_name} "
+        f"x {n}, {N} frames (1 key + {n_p} P): payloads and recon over the "
+        f"coded frame equal {ref['name']}'s, byte for byte; every frame "
+        f"striped ({recons.striped}); cross-card halo copies: not exercised "
+        "(one card)")
+    log(f"{name}: key {np.mean(eng.key_ms):.1f} ms, P {np.mean(eng.p_ms):.1f} "
+        f"ms a frame (one device, {ref['name']}: key {ref['key_ms']:.1f} ms, P "
+        f"{ref['p_ms']:.1f} ms), {N} frames in {wall:.3f} s = "
+        f"{N / wall:.4f} fps | {card}")
+    log(f"{name}: launches {launches}, per P-frame "
+        f"{ {k: round(v / n_p, 2) for k, v in launches.items()} } (expected "
+        f"{n} x (3 + 5) K1, {n} x 3 K2)")
+    return {"launches": launches}
 
 
 def _device_events(prof):
@@ -1266,8 +1453,9 @@ def phase_conform(dev_name: str):
     """256x144 streams: the port's spec decoder == port recon; CPU bytes
     == GPU bytes.  A grainy golden-off clip, a clean golden one (key A,
     inter B, inter A; frame types pinned) that turns the loop filter on
-    and must choose GOLDEN blocks, and the grainy clip in the default
-    config (golden, CDEF and LR on), whose filters must turn on."""
+    and must choose GOLDEN blocks, the grainy clip in the default config
+    (golden, CDEF and LR on), whose filters must turn on, a clean drift at
+    chunk=3, and a 256x256 drift at chunk=3 over 4 stripes."""
     import numpy as np
 
     from av1tpu_torch.config import TpuEncoderConfig
@@ -1371,6 +1559,32 @@ def phase_conform(dev_name: str):
         "reproduces the recon of all 5 frames, and the CPU plain path and "
         "the GPU kernels give byte-identical streams")
 
+    # stripes: a clean 256x256 drift at chunk=3 over 4 stripes of 64 rows
+    # (the 256-row key has one tile row, so it stays on one device)
+    frames = [clean_frame(256, 256, t, 0) for t in range(5)]
+    streams = {}
+    for device, n in ((dev_name, 1), (dev_name, 4), ("cpu", 4)):
+        eng = SpecTorchEngine(TpuEncoderConfig(chunk=3), device=device,
+                              stripe_devices=(device,) * n)
+        with capture_recons() as recons:
+            out = list(eng.encode_stream(frames, 96))
+        if recons.striped != {"key": 0, "inter": 4 if n > 1 else 0}:
+            fail(f"conformance (256x256, {n} stripes, {device}): "
+                 f"{recons.striped} striped")
+        streams[device, n] = [p for p, _ in out]
+        if (device, n) == (dev_name, 4):
+            err = _decode_mismatch(streams[device, n], [
+                tuple(p.cpu().numpy() for p in r) for r in recons])
+            if err:
+                fail(f"conformance (256x256, 4 stripes): {err}")
+    if not (streams[dev_name, 4] == streams["cpu", 4] == streams[dev_name, 1]):
+        fail("conformance (256x256, 4 stripes): the GPU and CPU striped "
+             "streams and the GPU one-device stream are not all equal")
+    log("conformance 256x256 (clean, default config at chunk=3, 4 stripes on "
+        "each P-frame): the port's spec decoder reproduces the recon of all 5 "
+        "frames, and the CPU plain path and the GPU kernels give the "
+        "one-device stream byte for byte")
+
 
 def source_decoders() -> str:
     """Which source decoders this machine has: the system's libavcodec
@@ -1417,7 +1631,7 @@ def phase_daemon(card: str) -> dict:
     from av1tpu_torch.encoder import io_pack
     from av1tpu_torch.media import mkv, y4m
     name = "daemon-1080p"
-    W, H = SIZES["1080p"]
+    W, H, _ = SIZES["1080p"]
     rng = np.random.default_rng(7)
     frames = [grainy_frame(W, H, i, rng) for i in range(9)]
     root = tempfile.mkdtemp(prefix="av1torch-daemon-")
@@ -1611,8 +1825,9 @@ def main() -> int:
     k1_err, k1_rows, k2_err, k2_rows, g2_err, g2_rows = phase_kernels(
         torch.device(dev_name))
     daemon = phase_daemon(card)
-    counts, runs = phase_slices(dev_name, daemon["payloads"])
+    counts, runs, refs = phase_slices(dev_name, daemon["payloads"])
     counts["daemon-1080p"] = daemon["launches"]
+    counts.update(phase_stripes(dev_name, card, refs))
     if "--profile" in sys.argv[1:]:
         phase_profile(runs)
     phase_conform(dev_name)

@@ -1,6 +1,6 @@
 """Device times of K1 (``av1tpu_torch/csrc/gather.cu``) at the gathers
-of the 1080p and 720p P-frame paths, to compare two checkouts on one
-card.
+of the 1080p and 720p P-frame paths and of their stripes
+(``chip_smoke.SIZES``), to compare two checkouts on one card.
 
     python3 k1bench.py [--tree DIR] [--gap]
 
@@ -52,8 +52,8 @@ def emit(**row):
 
 def bench(gather, dev, uv: bool) -> None:
     """Every main-path gather at random and at path-like origins."""
-    for sname, (w, h) in cs.SIZES.items():
-        geo, b32 = cs.geometry(w, h)
+    for sname, (w, h, n_stripes) in cs.SIZES.items():
+        geo, b32 = cs.geometry(w, h, n_stripes)
         rng = np.random.default_rng(1)
         for label, entry, pname, W, n, B, P, lg, lo in shapes(b32):
             hp, wp = geo[pname]

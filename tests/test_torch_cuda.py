@@ -323,6 +323,8 @@ def test_gpu_stream_equals_cpu_stream(cuda):
                                  device=d).encode_stream(frames, 96))
             for d in ("cuda", "cpu")]
     assert outs[0] == outs[1]
+    assert len(SpecTorchEngine(TpuEncoderConfig(), device="cuda:0")._group) \
+        <= 1
 
 
 @pytest.mark.cuda
@@ -349,6 +351,8 @@ def test_gpu_golden_deblock_stream_equals_cpu_stream(cuda):
         assert int(pend[3][11][14].sum()) > 0      # GOLDEN blocks
         outs.append([eng._finalize(p) for p in pend])
     assert outs[0] == outs[1]
+    assert len(SpecTorchEngine(TpuEncoderConfig(), device="cuda:0")._group) \
+        <= 1
     n1 = (gather.gather_windows.launches, gather.gather_windows2.launches,
           refine.refine_ssd.launches)
     assert all(b > a for a, b in zip(n0, n1))
@@ -365,3 +369,42 @@ def test_daemon_make_engine_on_card(cuda):
     assert isinstance(eng, SpecTorchEngine) and eng.device.type == "cuda"
     dt = engine.verify_engine(eng, "1280x720")
     assert isinstance(dt, float) and dt > 0
+
+
+@pytest.mark.cuda
+def test_stripes_across_two_cards_equal_one_card(cuda):
+    """K1 and K2 on the second card while the first is current launch
+    there and equal their plain versions; a clean 256x256 drift in the
+    default config at chunk=3, its P-frames in 4 stripes alternating
+    between two cards (every halo crosses cards), gives the one-card
+    stream byte for byte.  The default config (num_chips=0) keeps one
+    card."""
+    from av1tpu_torch.config import TpuEncoderConfig
+    from av1tpu_torch.spec_engine import SpecTorchEngine
+    from av1tpu_torch.utils.cleansrc import clean_frame
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(9)
+    second = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        plane = torch.as_tensor(rng.integers(0, 256, (160, 192)),
+                                dtype=torch.int32, device=second)
+        oy, ox = (torch.as_tensor(rng.integers(0, 160 - 41, 37),
+                                  dtype=torch.int32, device=second)
+                  for _ in range(2))
+        got = gather.gather_windows(plane, oy, ox, 41)
+        assert torch.equal(got, gather.gather_windows_plain(plane, oy, ox, 41))
+        blocks = got[:, 8:24, 8:24].contiguous()
+        s1, d1 = refine.refine_ssd(blocks, got[:, :32, :32].contiguous(),
+                                   16, 8)
+        s0, d0 = refine.refine_ssd_plain(blocks, got[:, :32, :32], 16, 8)
+        assert torch.equal(s1, s0) and torch.equal(d1, d0)
+    frames = [clean_frame(256, 256, t, 0) for t in range(5)]
+    outs = []
+    for group in (("cuda:0",), ("cuda:0", "cuda:1") * 2):
+        eng = SpecTorchEngine(TpuEncoderConfig(chunk=3), device="cuda:0",
+                              stripe_devices=group)
+        outs.append([p for p, _ in eng.encode_stream(frames, 96)])
+    assert outs[0] == outs[1]
+    assert len(SpecTorchEngine(TpuEncoderConfig(), device="cuda:0")._group) \
+        <= 1

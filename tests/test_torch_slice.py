@@ -196,8 +196,10 @@ def test_engine_rejects_unported_config():
     """golden, CDEF and LR are accepted, alone and together, and so are
     the daemon's defaults themselves (chunk=8, delta_upload): they
     construct and encode a key and a full chunk of 8, and the frame
-    header carries the searched CDEF strengths.  What is still missing
-    raises: more than one device."""
+    header carries the searched CDEF strengths.  Several devices are
+    accepted too (the stripe group: num_chips on the CPU, or explicit
+    stripe devices); a stripe device that does not exist raises, and so
+    does the retired bitstream, which is not ported."""
     from av1tpu_torch.config import TpuEncoderConfig
     from av1tpu_torch.spec_engine import SpecTorchEngine
     from av1tpu_torch.specav1 import headers, obu
@@ -226,8 +228,18 @@ def test_engine_rejects_unported_config():
     assert seq.enable_cdef and seq.enable_restoration
     assert [c.y_pri[0], c.y_sec[0], c.uv_pri[0], c.uv_sec[0]] == \
         pend[11][16].tolist()
-    with pytest.raises(NotImplementedError, match="num_chips"):
-        SpecTorchEngine(TpuEncoderConfig(**{**ok, "num_chips": 2}),
+    cpu = torch.device("cpu")
+    assert SpecTorchEngine(TpuEncoderConfig(**ok), device="cpu")._group == ()
+    assert SpecTorchEngine(TpuEncoderConfig(**{**ok, "num_chips": 2}),
+                           device="cpu")._group == (cpu, cpu)
+    assert SpecTorchEngine(TpuEncoderConfig(**ok), device="cpu",
+                           stripe_devices=("cpu",) * 3)._group == (cpu,) * 3
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SpecTorchEngine(TpuEncoderConfig(**ok), device="cpu",
+                            stripe_devices=("cpu", "cuda"))
+    with pytest.raises(NotImplementedError, match="bitstream"):
+        SpecTorchEngine(TpuEncoderConfig(**{**ok, "bitstream": "av1tpu"}),
                         device="cpu")
     # the defaults: chunked dispatch with packed upload
     eng = SpecTorchEngine(TpuEncoderConfig(), device="cpu")
