@@ -1,4 +1,5 @@
-# Copied from av1tpu/encoder/entropy/__init__.py (load_library).
+# Copied from av1tpu/encoder/entropy/__init__.py (load_library, with the
+# range encoder's prototypes).
 """The native spec-AV1 tile writer: build and load.
 
 ``native/`` holds the C++ range coder (``ec.cc``, ``ec.h``) and the tile
@@ -71,9 +72,23 @@ def build_library() -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """The loaded tile-writer library (built on first call)."""
+    """The loaded tile-writer library (built on first call), with the
+    range encoder's entry points prototyped for ``specav1.writer``'s
+    ``TileWriter``."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = ctypes.CDLL(build_library())
+            lib = ctypes.CDLL(build_library())
+            vp = ctypes.c_void_p
+            lib.ec_enc_create.restype = vp
+            lib.ec_enc_reset.argtypes = [vp]
+            lib.ec_enc_destroy.argtypes = [vp]
+            lib.ec_enc_symbol_adapt.argtypes = [vp, ctypes.c_int, vp,
+                                                ctypes.c_int]
+            lib.ec_enc_bool.argtypes = [vp, ctypes.c_int, ctypes.c_uint]
+            lib.ec_enc_literal.argtypes = [vp, ctypes.c_uint32,
+                                           ctypes.c_int]
+            lib.ec_enc_done.argtypes = [vp, vp, ctypes.c_int32]
+            lib.ec_enc_done.restype = ctypes.c_int32
+            _lib = lib
         return _lib

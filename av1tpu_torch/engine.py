@@ -4,7 +4,8 @@ Copied from ``av1tpu/engine_tpu.py`` (a module that imports JAX at
 module scope): the GOP/keyframe decisions (``_scene_cut``,
 ``_decide_key``, ``_classify_frame``, ``_gop_predictable``), plane
 padding (``_pad_planes`` with ``legacy.core.intra_frame.pad_plane``),
-the entropy worker pool (``_entropy_pool``), ``encode_stream`` with
+the entropy worker pool (``_entropy_pool``), ``encode_next`` (one
+frame, one dispatch, for the tools), ``encode_stream`` with
 its chunk buffer (runs of ``cfg.chunk`` P-frames go to the device as one
 dispatch, keyframes, flashes and sub-chunk remainders one frame at a
 time; the golden-aware scene cut included), and the daemon's engine
@@ -234,6 +235,12 @@ class TorchEngine:
     def encode_smoke_frame(self, frame: Frame) -> bytes:
         """Startup self-test payload."""
         return self.encode_keyframe(frame, qindex=96)
+
+    def encode_next(self, frame: Frame, qindex: int) -> tuple[bytes, bool]:
+        """GOP-aware encode of one frame as one dispatch: keyframe every
+        cfg.keyint frames or at a scene cut, else inter.  Returns (frame
+        OBU payload, is_keyframe)."""
+        return self._finalize(self._submit(frame, qindex))
 
     def encode_stream(self, frames, qindex):
         """Pipelined GOP encode over an iterable of Frames.  ``qindex``

@@ -237,6 +237,152 @@ class LrState:
 
 
 # ---------------------------------------------------------------------
+# Writer duals of the subexp primitives (encode side).
+
+def _write_quniform(tw, n: int, v: int) -> None:
+    if n <= 1:
+        return
+    l = n.bit_length()
+    m = (1 << l) - n
+    if v < m:
+        tw.literal(v, l - 1)
+    else:
+        t = v + m
+        tw.literal(t >> 1, l - 1)
+        tw.literal(t & 1, 1)
+
+
+def _write_subexp_fin(tw, n: int, k: int, v: int) -> None:
+    i = 0
+    mk = 0
+    while True:
+        b2 = k + i - 1 if i else k
+        a = 1 << b2
+        if n <= mk + 3 * a:
+            _write_quniform(tw, n - mk, v - mk)
+            return
+        if v >= mk + a:
+            tw.literal(1, 1)
+            i += 1
+            mk += a
+        else:
+            tw.literal(0, 1)
+            tw.literal(v - mk, b2)
+            return
+
+
+def _recenter_nonneg(r: int, v: int) -> int:
+    if v > (r << 1):
+        return v
+    if v >= r:
+        return (v - r) << 1
+    return ((r - v) << 1) - 1
+
+
+def _recenter_finite(n: int, r: int, v: int) -> int:
+    if (r << 1) <= n:
+        return _recenter_nonneg(r, v)
+    return _recenter_nonneg(n - 1 - r, n - 1 - v)
+
+
+def write_signed_subexp_with_ref(tw, low: int, high: int, k: int,
+                                 r: int, v: int) -> None:
+    n = high - low
+    _write_subexp_fin(tw, n, k, _recenter_finite(n, r - low, v - low))
+
+
+class _Shim:
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+
+class LrEncState(LrState):
+    """Writer-side per-frame LR state.  decisions: dict
+    (plane, unit_row, unit_col) -> None (RU off) | ("wiener",
+    vfilt3, hfilt3) | ("sgr", set_idx, xqd0, xqd1)."""
+
+    def __init__(self, hdr, seq, decisions: dict):
+        super().__init__(hdr, seq)
+        self.decisions = decisions
+
+    @classmethod
+    def for_encode(cls, types, size: int, w: int, h: int,
+                   decisions: dict, uv_shift: int = 0):
+        """Duck-typed construction for the encode side (no parsed
+        header)."""
+        lr = _Shim(frame_restoration_type=list(types),
+                   loop_restoration_size=[size, size >> uv_shift,
+                                          size >> uv_shift],
+                   uses_lr=any(types))
+        hdr = _Shim(lr=lr, frame_width=w, frame_height=h,
+                    allow_intrabc=0)
+        seq = _Shim(subsampling_x=1, subsampling_y=1)
+        return cls(hdr, seq, decisions)
+
+    def write_lr(self, tw, r: int, c: int, bsize_w4: int,
+                 bsize_h4: int) -> None:
+        for p in range(3):
+            if self.types[p] == RESTORE_NONE:
+                continue
+            sub_x = 0 if p == 0 else self.seq.subsampling_x
+            sub_y = 0 if p == 0 else self.seq.subsampling_y
+            size = self.sizes[p]
+            urs = (r * (4 >> sub_y) + size - 1) // size
+            ure = min(self.unit_rows[p],
+                      ((r + bsize_h4) * (4 >> sub_y) + size - 1) // size)
+            ucs = (c * (4 >> sub_x) + size - 1) // size
+            uce = min(self.unit_cols[p],
+                      ((c + bsize_w4) * (4 >> sub_x) + size - 1) // size)
+            for ur in range(urs, ure):
+                for uc in range(ucs, uce):
+                    self._write_lr_unit(tw, p, ur, uc)
+
+    def _write_lr_unit(self, tw, p: int, ur: int, uc: int) -> None:
+        ftype = self.types[p]
+        d = self.decisions.get((p, ur, uc))
+        fc = tw.fc
+        if ftype == RESTORE_WIENER:
+            tw.sym(0 if d is None else 1, fc.restore_wiener)
+        elif ftype == RESTORE_SGRPROJ:
+            tw.sym(0 if d is None else 1, fc.restore_sgrproj)
+        else:
+            rt = RESTORE_NONE if d is None else (
+                RESTORE_WIENER if d[0] == "wiener" else RESTORE_SGRPROJ)
+            tw.sym(rt, fc.restore_switchable)
+        if d is None:
+            return
+        if d[0] == "wiener":
+            _, vf, hf = d
+            self.wiener[(p, ur, uc)] = (list(vf), list(hf))
+            self.rtype[(p, ur, uc)] = RESTORE_WIENER
+            for pass_, coeffs in enumerate((vf, hf)):
+                first = 1 if p else 0
+                if p:
+                    assert coeffs[0] == 0
+                for j in range(first, 3):
+                    mn, mx = WIENER_TAPS_MIN[j], WIENER_TAPS_MAX[j]
+                    k = WIENER_TAPS_K[j]
+                    write_signed_subexp_with_ref(
+                        tw, mn, mx + 1, k, self.ref_wiener[p][pass_][j],
+                        coeffs[j])
+                    self.ref_wiener[p][pass_][j] = coeffs[j]
+        else:
+            _, set_idx, xqd0, xqd1 = d
+            self.sgr[(p, ur, uc)] = (set_idx, xqd0, xqd1)
+            self.rtype[(p, ur, uc)] = RESTORE_SGRPROJ
+            tw.literal(set_idx, SGRPROJ_PARAMS_BITS)
+            r0, _e0, r1, _e1 = SGR_PARAMS[set_idx]
+            for i, (rad, v) in enumerate(((r0, xqd0), (r1, xqd1))):
+                mn = SGRPROJ_PRJ_MIN0 if i == 0 else SGRPROJ_PRJ_MIN1
+                mx = SGRPROJ_PRJ_MAX0 if i == 0 else SGRPROJ_PRJ_MAX1
+                if rad:
+                    write_signed_subexp_with_ref(
+                        tw, mn, mx + 1, SGRPROJ_PRJ_SUBEXP_K,
+                        self.ref_sgr[p][i], v)
+                self.ref_sgr[p][i] = v
+
+
+# ---------------------------------------------------------------------
 # Filters (7.17).  All operate on one full plane at a time.
 
 def _wiener_7tap(c3) -> np.ndarray:

@@ -71,3 +71,6 @@ def make_obu(otype: int, payload: bytes) -> bytes:
             break
     return header + bytes(leb) + payload
 
+
+def temporal_delimiter() -> bytes:
+    return make_obu(OBU_TEMPORAL_DELIMITER, b"")

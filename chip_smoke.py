@@ -36,7 +36,25 @@ Phases (any failure exits non-zero; nothing is caught):
               the machine has, the decode-verify verdict, self-test and
               transcode seconds, the job's encode_fps, the size ratio
               and each chunk's upload (packed or raw)
-  5. slices   through SpecTorchEngine(cfg, device="cuda").encode_stream at
+  5. ops      the operator surfaces over the daemon phase's config and
+              job directory: the doctor (doctor.main([cfg])) must be
+              healthy with its accelerator line naming the card and its
+              320x192 keyframe smoke encoded on the card; the dashboard's
+              CUDA context (av1top's reader in a process of its own:
+              card-wide used bytes there less this process's); av1top
+              --once (tui.main.main([cfg, "--once"])) must show the
+              daemon-1080p job as a success with its savings and a GPU
+              line naming the card, its total equal to mem_get_info's,
+              its used memory above 0; encode_clip at 1920x1080, 4
+              frames (clean testsrc2, 1 key + 3 P, TpuEncoderConfig(),
+              one encode_next a frame), with the launch counts set to 0
+              just before and read just after: K1 3 + 5 and K2 3 a
+              P-frame, an IVF of 4 temporal units whose decode by the
+              port's spec decoder reproduces every recon, and quality
+              --frames 1 on it against a y4m of its source, whose Y-PSNR
+              must be recon 0's (both in a decode worker); the tool's
+              fps/bpp line and key and P ms
+  6. slices   through SpecTorchEngine(cfg, device="cuda").encode_stream at
               qindex 96, with the launch counts set to 0 before each:
               slice-1080p-grain   1 key + 3 P, seeded grainy 1920x1080,
                                   golden off (one reference)
@@ -77,7 +95,7 @@ Phases (any failure exits non-zero; nothing is caught):
               upload bytes packed against raw, submit-to-result and
               finalize ms, per run fps and peak device memory, and the
               first chunk's upload ms raw and packed
-  6. stripes the multi-device stripe encode with every stripe on this card
+  7. stripes the multi-device stripe encode with every stripe on this card
               (stripe devices ("cuda:0",) * n; halo copies between cards
               are not exercised on one), with the launch counts set to 0
               before each and read after:
@@ -93,7 +111,7 @@ Phases (any failure exits non-zero; nothing is caught):
               the coded frame, byte for byte, with K1 n x (3 + 5) and K2
               n x 3 launches a P-frame; key and P ms beside the one-device
               cell's
-  7. conform  256x144 streams (16-px strip) decoded by the port's own spec
+  8. conform  256x144 streams (16-px strip) decoded by the port's own spec
               decoder must equal the port's reconstruction, and the CPU run
               of the port must give the same bytes: a grainy golden-off
               1 key + 3 P, a clean golden key A, inter B, inter A with
@@ -121,6 +139,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -751,16 +770,21 @@ def decode_async(name: str, payloads, recons, what: str) -> None:
     """Hands a stream's decode check to a worker process (the Python
     decoder takes 11-28 s a 1080p frame), so that the card encodes the
     next cells meanwhile; ``decode_wait`` collects the verdicts."""
-    import multiprocessing
     if len(payloads) != len(recons):
         fail(f"{name}: {len(payloads)} payloads for {len(recons)} recons")
+    host = [tuple(p.cpu().numpy() for p in r) for r in recons]
+    check_async(name, what, _decode_job, [bytes(p) for p in payloads], host)
+
+
+def check_async(name: str, what: str, job, *args) -> None:
+    """Runs ``job(*args)`` in a decode worker process; it returns (what
+    differs or None, seconds[, a line to print])."""
+    import multiprocessing
     if _decodes["pool"] is None:
         _decodes["pool"] = multiprocessing.get_context("spawn").Pool(
             DECODE_WORKERS)
-    host = [tuple(p.cpu().numpy() for p in r) for r in recons]
-    job = _decodes["pool"].apply_async(
-        _decode_job, ([bytes(p) for p in payloads], host))
-    _decodes["jobs"].append((name, what, job))
+    _decodes["jobs"].append((name, what, _decodes["pool"].apply_async(
+        job, args)))
 
 
 def decode_wait() -> None:
@@ -771,9 +795,11 @@ def decode_wait() -> None:
         return
     t = time.perf_counter()
     for name, what, job in _decodes["jobs"]:
-        err, secs = job.get()
+        err, secs, *note = job.get()
         if err:
             fail(f"{name}: {err}")
+        for line in note:
+            log(f"{name}: {line}")
         log(f"{name}: the port's spec decoder reproduces the recon of "
             f"{what} exactly, three planes each (decode {secs:.1f} s in a "
             "worker process)")
@@ -1616,9 +1642,10 @@ def phase_daemon(card: str) -> dict:
     named clip.mkv (the scan filters by extension; probe and source
     decode dispatch on the y4m magic, the one source the daemon decodes
     on a machine without cv2 or libavcodec).  The launch counts are set
-    to 0 just before the pass and read just after."""
+    to 0 just before the pass and read just after.  Its directory (the
+    library and the job directory) stays for the ops phase; ``main``
+    removes it at the end."""
     import logging
-    import shutil
     import tempfile
 
     import numpy as np
@@ -1785,8 +1812,186 @@ def phase_daemon(card: str) -> dict:
         f"{['packed' if x else 'raw' for x in seen['packs']]} | {card}")
     log(f"{name}: launches {launches}, per P-frame "
         f"{ {k: round(v / n_p, 2) for k, v in launches.items()} }")
-    shutil.rmtree(root)
-    return {"launches": launches, "payloads": muxed}
+    return {"launches": launches, "payloads": muxed, "cfg": cfg,
+            "root": root, "job": job}
+
+
+
+def _captured(fn, *args):
+    """(return value, stdout lines) of fn(*args)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rv = fn(*args)
+    return rv, buf.getvalue().splitlines()
+
+
+def _clip_job(ivf_path: str, recons, y4m_path: str, want_psnr: float):
+    """In a decode worker: the port's spec decoder on encode_clip's IVF
+    must reproduce every recon; then ``quality --frames 1`` on the IVF
+    against the source y4m must give recon 0's Y-PSNR."""
+    from av1tpu_torch.media import ivf
+    from av1tpu_torch.tools import quality
+    t = time.perf_counter()
+    with open(ivf_path, "rb") as f:
+        ivf.read_header(f)
+        tus = [tu for tu, _ in ivf.iter_frames(f)]
+    err = _decode_mismatch(tus, recons)
+    rc, out = _captured(quality.main, ["--ref", y4m_path, "--dist", ivf_path,
+                                       "--frames", "1"])
+    res = json.loads(out[-1]) if rc == 0 and out else {}
+    if err is None and (res.get("frames") != 1
+                        or res.get("y_psnr") != want_psnr):
+        err = (f"quality --frames 1 gave rc {rc}, {out}; recon 0's Y-PSNR "
+               f"is {want_psnr}")
+    return err, time.perf_counter() - t, f"quality --frames 1: {out[-1:]}"
+
+
+def phase_ops(card: str, daemon: dict) -> dict:
+    """ops: the operator surfaces on the card, over the daemon phase's
+    config (written to a file, as a user passes it) and job directory.
+    The doctor, av1top's reader in a process of its own (the size of
+    the CUDA context that mem_get_info opens there), av1top --once, and
+    encode_clip at 1920x1080 through encode_next with the launch counts
+    set to 0 just before and read just after; its stream's decode and
+    quality's Y-PSNR are checked in a decode worker."""
+    import numpy as np
+    import torch
+
+    from av1tpu_torch import engine as engine_mod
+    from av1tpu_torch.media import ivf, y4m
+    from av1tpu_torch.tools import doctor, encode_clip, quality
+    from av1tpu_torch.tui import main as tui_main
+    from av1tpu_torch.tui import view
+    from av1tpu_torch.utils.testsrc import testsrc2
+    name = "ops"
+    root, job = daemon["root"], daemon["job"]
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(daemon["cfg"].to_dict(), f)
+    card_name = torch.cuda.get_device_name(0)
+
+    rc, out = _captured(doctor.main, [cfg_path])
+    for line in out:
+        log(f"{name}: doctor: {line}")
+    accel = [ln for ln in out if "] accelerator:" in ln]
+    smoke = [ln for ln in out if "] encode smoke:" in ln]
+    if rc != 0 or out[-1] != "RESULT: healthy":
+        fail(f"{name}: doctor exit {rc}, {out[-1:]}")
+    if len(accel) != 1 or not accel[0].startswith("[OK  ]") or \
+            card_name not in accel[0]:
+        fail(f"{name}: doctor's accelerator line {accel}")
+    m = re.search(r"keyframe on cuda:\d+, ([0-9.]+) s\)$",
+                  smoke[0] if len(smoke) == 1 else "")
+    if not m or not smoke[0].startswith("[OK  ]"):
+        fail(f"{name}: doctor's encode smoke {smoke}")
+    log(f"{name}: doctor encode smoke (320x192 key, kernels built) "
+        f"{m.group(1)} s | {card}")
+
+    # av1top's reader in a process of its own: card-wide used bytes
+    # there, less this process's, is the CUDA context mem_get_info opens
+    torch.cuda.synchronize()
+    free0, total = torch.cuda.mem_get_info(0)
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", "import json\n"
+         "from av1tpu_torch.tui import metrics\n"
+         "print(json.dumps(metrics.read_gpu()))"],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t
+    if res.returncode != 0:
+        fail(f"{name}: av1top's reader in a process of its own: "
+             f"{res.stdout}{res.stderr}")
+    _, sub_name, _, sub_used, _ = json.loads(res.stdout.splitlines()[-1])
+    ctx = sub_used * 1024 ** 3 - (total - free0)
+    free1 = torch.cuda.mem_get_info(0)[0]
+    if sub_name != card_name or ctx <= 0:
+        fail(f"{name}: the dashboard's process read {sub_name!r}, a context "
+             f"of {ctx} bytes")
+    log(f"{name}: the dashboard's CUDA context (mem_get_info in a process "
+        f"of its own): {ctx / 2 ** 20:.1f} MiB ({int(ctx)} bytes), released "
+        f"at exit: {free1 == free0}; the reader's process took {secs:.1f} s "
+        f"| {card}")
+
+    rc, lines = _captured(tui_main.main, [cfg_path, "--once"])
+    for line in lines:
+        log(f"{name}: av1top --once | {line}")
+    text = "\n".join(lines)
+    gpu = [re.match(r"  GPU  \[[█░]+\] +([0-9.]+)%  MEM \(([0-9.]+)/"
+                    r"([0-9.]+) GB\)  (\d+)x (.+)$", ln) for ln in lines]
+    gpu = [g for g in gpu if g]
+    want_total = f"{torch.cuda.mem_get_info(0)[1] / 1024 ** 3:.1f}"
+    saved = view.humanize_bytes(job.original_bytes - job.new_bytes)
+    if rc != 0 or len(gpu) != 1:
+        fail(f"{name}: av1top --once exit {rc}, GPU lines {gpu}")
+    used, tot, cnt, gname = (float(gpu[0].group(2)), gpu[0].group(3),
+                             int(gpu[0].group(4)), gpu[0].group(5))
+    if gname != card_name or tot != want_total or used <= 0 or \
+            cnt != torch.cuda.device_count():
+        fail(f"{name}: av1top's GPU line {gpu[0].group(0)!r}: the card is "
+             f"{card_name!r} with {want_total} GB")
+    if "success 1" not in text or f"total saved: {saved}" not in text or \
+            not re.search(r"^  success +clip\.mkv ", text, re.M):
+        fail(f"{name}: av1top does not show the daemon-1080p job as a "
+             f"success saving {saved}")
+
+    W, H, _ = SIZES["1080p"]
+    ivf_path = os.path.join(root, "clip.ivf")
+    real_next = engine_mod.TorchEngine.encode_next
+    ms = []
+
+    def timed_next(eng, frame, qindex):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real_next(eng, frame, qindex)
+        torch.cuda.synchronize()
+        ms.append(((time.perf_counter() - t) * 1e3, res[1]))
+        return res
+
+    counters = _counters()
+    engine_mod.TorchEngine.encode_next = timed_next
+    try:
+        with capture_recons() as recons:
+            for fn in counters.values():
+                fn.launches = 0
+            rc, out = _captured(encode_clip.main, [
+                "--width", str(W), "--height", str(H), "--frames", "4",
+                "--out", ivf_path])
+            launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        engine_mod.TorchEngine.encode_next = real_next
+    for line in out:
+        log(f"{name}: encode_clip: {line} | {card}")
+    with open(ivf_path, "rb") as f:
+        hdr = ivf.read_header(f)
+        tus = [tu for tu, _ in ivf.iter_frames(f)]
+    keys = [k for _, k in ms]
+    if rc != 0 or len(tus) != 4 or keys != [True, False, False, False] or \
+            (hdr["width"], hdr["height"]) != (W, H) or len(recons) != 4:
+        fail(f"{name}: encode_clip exit {rc}, {len(tus)} TUs, frame types "
+             f"{keys}, {len(recons)} recons, header {hdr}")
+    need_launches(name, launches,
+                  ("gather_windows", "gather_windows2", "refine_ssd"))
+    need_k1_launches(name, launches, 3, 3, 5)
+    if launches["refine_ssd"] != 9:
+        fail(f"{name}: K2 launches {launches['refine_ssd']} over 3 P-frames, "
+             "expected 3 a frame")
+    log(f"{name}: encode_clip {W}x{H}: key {ms[0][0]:.1f} ms, P "
+        f"{np.mean([t for t, _ in ms[1:]]):.1f} ms (min "
+        f"{min(t for t, _ in ms[1:]):.1f}), encode_next with host entropy, "
+        f"bracketed by synchronizes | {card}")
+    log(f"{name}: launches {launches}, per P-frame "
+        f"{ {k: round(v / 3, 2) for k, v in launches.items()} }")
+    frames = [testsrc2(W, H, i) for i in range(4)]
+    src = os.path.join(root, "clip_source.y4m")
+    y4m.write(src, [(f.y, f.u, f.v) for f in frames])
+    rec0 = recons[0][0].cpu().numpy()[:H, :W]
+    want = round(quality.psnr(frames[0].y, rec0), 3)
+    host = [tuple(p.cpu().numpy() for p in r) for r in recons]
+    check_async(name, "all 4 frames of encode_clip's IVF (quality's "
+                f"Y-PSNR is recon 0's, {want} dB)", _clip_job, ivf_path,
+                host, src, want)
+    return {"launches": launches}
 
 
 def kernel_entry(name, source, replaces, counts, err, rows):
@@ -1825,13 +2030,16 @@ def main() -> int:
     k1_err, k1_rows, k2_err, k2_rows, g2_err, g2_rows = phase_kernels(
         torch.device(dev_name))
     daemon = phase_daemon(card)
+    ops = phase_ops(card, daemon)
     counts, runs, refs = phase_slices(dev_name, daemon["payloads"])
     counts["daemon-1080p"] = daemon["launches"]
+    counts["encode_clip"] = ops["launches"]
     counts.update(phase_stripes(dev_name, card, refs))
     if "--profile" in sys.argv[1:]:
         phase_profile(runs)
     phase_conform(dev_name)
     decode_wait()
+    shutil.rmtree(daemon["root"])
     log(f"smoke: {time.perf_counter() - t_start:.1f} s from start to the "
         "last check")
 

@@ -408,3 +408,32 @@ def test_stripes_across_two_cards_equal_one_card(cuda):
     assert outs[0] == outs[1]
     assert len(SpecTorchEngine(TpuEncoderConfig(), device="cuda:0")._group) \
         <= 1
+
+
+@pytest.mark.cuda
+def test_dashboard_reads_the_card(cuda):
+    """av1top's reader on the card: the device count, card 0's name,
+    and card-wide used memory (this process's context included) within
+    the card's total."""
+    from av1tpu_torch.tui import metrics
+    pct, name, count, used, total = metrics.read_gpu()
+    assert count == torch.cuda.device_count() >= 1
+    assert name == torch.cuda.get_device_name(0)
+    assert 0 < used <= total
+    assert total == torch.cuda.mem_get_info(0)[1] / 1024 ** 3
+    assert 0 < pct <= 100
+
+
+@pytest.mark.cuda
+def test_doctor_encode_smoke_on_card(cuda, capsys):
+    """The doctor's encode smoke runs a 320x192 keyframe on the card
+    (building the kernels at first use) and its accelerator check names
+    the card."""
+    from av1tpu_torch.tools import doctor
+    assert doctor.check_encode_smoke("cuda")
+    assert doctor.check_gpu() is True
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("[OK  ] encode smoke: ")
+    assert "320x192 keyframe on cuda:0" in out[0]
+    assert out[1].startswith("[OK  ] accelerator: ")
+    assert torch.cuda.get_device_name(0) in out[1]

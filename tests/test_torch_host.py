@@ -4,9 +4,10 @@ The port keeps copies of the JAX package's framework-free modules: the
 spec decoder, the header/OBU writer, the native tile writer and its
 loader, and the constant tables.  Each copy must behave exactly as its
 original: the same planes from the same stream, the same header bytes,
-the same tile bytes, the same tables; but for the tile decoder's three
-marked departures, where the copy follows libaom and its original does
-not.  None of these tests compiles a JAX program.
+the same tile bytes, the same tables, the same host reference encoder
+streams; but for the tile decoder's three marked departures, where the
+copy follows libaom and its original does not.  None of these tests
+compiles a JAX program.
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 from av1tpu.specav1 import cdef as j_cdef
 from av1tpu.specav1 import cdfs as j_cdfs
 from av1tpu.specav1 import decoder as j_decoder
+from av1tpu.specav1 import encode as j_encode
 from av1tpu.specav1 import inter_recon as j_inter_recon
 from av1tpu.specav1 import native as j_native
 from av1tpu.specav1 import obu as j_obu
@@ -23,8 +25,8 @@ from av1tpu.specav1 import recon as j_recon
 from av1tpu.specav1 import writer as j_writer
 from av1tpu_torch import spec_engine
 from av1tpu_torch.config import TpuEncoderConfig
-from av1tpu_torch.specav1 import (cdef, cdfs, decoder, headers, inter_recon,
-                                  native, obu, recon, writer)
+from av1tpu_torch.specav1 import (cdef, cdfs, decoder, encode, headers,
+                                  inter_recon, lr, native, obu, recon, writer)
 from av1tpu_torch.utils import testsrc
 from av1tpu_torch.utils.cleansrc import clean_frame
 
@@ -348,3 +350,29 @@ def test_tile_writer_matches_jax_package(w, h, golden, monkeypatch):
     want = [eng._finalize(p) for p in pend]
     assert got == want
     assert [k for _, k in got] == [True, False, False][:len(pend)]
+
+
+@pytest.mark.parametrize("filters", [False, True], ids=["plain", "cdef_lr"])
+def test_host_reference_encoder_matches_jax_package(filters):
+    """encode_stream_host (the numpy reference encoder, Python tile
+    writer): the copy's temporal units and recons equal the original's
+    on a 64x64 3-frame clip, with in-loop CDEF and a luma Wiener unit or
+    without them; the stream decodes to its recons."""
+    frames = [(f.y, f.u, f.v) for f in (testsrc.testsrc2(64, 64, i)
+                                        for i in range(3))]
+    kw = {}
+    if filters:
+        kw = dict(cdef=(4, 2, 1, 1, 0),
+                  lr={"types": (lr.RESTORE_WIENER, 0, 0), "size": 64,
+                      "decisions": {(0, 0, 0): ("wiener", [3, -7, 15],
+                                                [-2, 5, 30])}})
+    want_tus, want_rec = j_encode.encode_stream_host(frames, 96, **kw)
+    tus, rec = encode.encode_stream_host(frames, 96, **kw)
+    assert tus == want_tus
+    for got, want in zip(rec, want_rec):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    for got, want in zip(decoder.decode_stream(tus), rec):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(a, np.int64),
+                                          np.asarray(b, np.int64))

@@ -118,7 +118,9 @@ def test_port_encode_decode_loads_no_av1tpu():
     and one pass of the port's daemon (``run_once``: scan, probe,
     transcode, size gate, decode-verify, atomic replace) over a library
     holding a 64x64 y4m stream named ``.mkv``, load neither jax nor any
-    module of av1tpu."""
+    module of av1tpu; nor do the operator tools, the dashboard, the
+    libaom binding and the host reference encoder, which no entry point
+    reaches."""
     code = (
         "import os, sys, tempfile\n"
         "import numpy as np\n"
@@ -151,6 +153,12 @@ def test_port_encode_decode_loads_no_av1tpu():
         "assert job.status == 'success' and job.encoded_frames == 2, "
         "job.reason\n"
         "assert open(src, 'rb').read(4) == b'\\x1a\\x45\\xdf\\xa3'\n"
+        "from av1tpu_torch.tools import doctor, encode_clip, quality\n"
+        "from av1tpu_torch.tui import main, metrics\n"
+        "metrics.collect()\n"
+        "assert 'av1tpu_torch.specav1.encode' not in sys.modules\n"
+        "from av1tpu_torch.conformance import aomcodec\n"
+        "from av1tpu_torch.specav1 import encode\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'av1tpu') or "
         "m.startswith(('jax.', 'av1tpu.')))\n"
         "assert not bad, bad\n"
@@ -191,6 +199,25 @@ def test_port_source_imports_no_av1tpu(path):
             assert top not in ("av1tpu", "jax"), \
                 f"{os.path.relpath(path, REPO)}:{node.lineno} imports {nm}"
 
+
+
+def test_host_reference_encoder_is_imported_by_no_port_module():
+    """specav1/encode.py is a test reference: no file of the port (nor
+    chip_smoke.py or k1bench.py) imports it, so no entry point reaches
+    it and nothing falls back to it."""
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom):
+                names = [f"{node.module}.{a.name}" for a in node.names]
+                names.append(node.module or "")
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            else:
+                continue
+            assert "av1tpu_torch.specav1.encode" not in names, \
+                f"{os.path.relpath(path, REPO)}:{node.lineno}"
 
 def test_engine_rejects_unported_config():
     """golden, CDEF and LR are accepted, alone and together, and so are

@@ -149,3 +149,43 @@ def test_engine_stream_matches_jax_engine():
                                           r[pl][:hh, :ww])
     # expected: the same bytes (every decision agrees)
     assert [p for p, _ in tout] == [p for p, _ in jout]
+
+
+def _base_qindexes(payloads):
+    """Each frame header's base_q_idx, in stream order."""
+    from av1tpu_torch.specav1 import headers, obu
+    seq, qs = None, []
+    for p in payloads:
+        for o in obu.parse_obus(p):
+            if o.type == obu.OBU_SEQUENCE_HEADER:
+                seq = headers.parse_sequence_header(o.payload)
+            elif o.type == obu.OBU_FRAME:
+                qs.append(headers.parse_frame_header(o.payload,
+                                                     seq).base_q_idx)
+    return qs
+
+
+def test_encode_next_matches_jax_engine_and_encode_stream():
+    """One frame a dispatch: the port's encode_next gives the JAX
+    engine's encode_next bytes on the 3-frame grainy clip (the key and
+    P-frame programs that the stream test compiles), and, at the
+    qindexes that encode_stream chose per frame (its keyframe boost,
+    read from its frame headers), the port's own encode_stream bytes."""
+    from av1tpu.spec_engine import SpecTpuEngine
+    rng = np.random.default_rng(4)
+    frames = [grainy_frame(i, rng) for i in range(3)]
+    jeng = SpecTpuEngine(TpuEncoderConfig(**CFG))
+    jeng.start_stream()
+    jout = [jeng.encode_next(f, 96) for f in frames]
+    pcfg = port_config.TpuEncoderConfig(**CFG)
+    port = SpecTorchEngine(pcfg, device="cpu")
+    port.start_stream()
+    tout = [port.encode_next(f, 96) for f in frames]
+    assert [k for _, k in tout] == [True, False, False]
+    assert tout == jout
+    stream = list(SpecTorchEngine(pcfg, device="cpu").encode_stream(frames,
+                                                                    96))
+    qs = _base_qindexes(p for p, _ in stream)
+    assert qs[0] < 96 and len(qs) == 3
+    port.start_stream()
+    assert [port.encode_next(f, q) for f, q in zip(frames, qs)] == stream
