@@ -1,5 +1,5 @@
-# Copied from av1tpu/daemon/engine.py (the engine is SpecTorchEngine;
-# no multi-host initialization).
+# Copied from av1tpu/daemon/engine.py (the engines are SpecTorchEngine and
+# LegacyTorchEngine; no multi-host initialization).
 """Engine bootstrap and self-test (the EnsureFFmpeg/VerifyFFmpeg analog).
 
 The reference downloads a static ffmpeg, verifies its version and encoder
@@ -32,19 +32,20 @@ class EngineError(Exception):
 
 def make_engine(cfg, device: str = "cuda"):
     """Construct the configured engine ("tpu" is the only real engine)
-    on ``device``, striped over up to ``cfg.tpu.num_chips`` cards where
-    that is 2 or more.  A missing card raises EngineError; nothing falls
-    back to the CPU unless the caller asks for it."""
+    on ``device``: ``SpecTorchEngine``, striped over up to
+    ``cfg.tpu.num_chips`` cards where that is 2 or more, or with
+    ``tpu.bitstream: "av1tpu"`` the private profile's
+    ``LegacyTorchEngine``.  A missing card raises EngineError; nothing
+    falls back to the CPU unless the caller asks for it."""
     if cfg.encoder != "tpu":
         raise EngineError(
             f"unknown encoder '{cfg.encoder}' (this build provides 'tpu'); "
             "set \"encoder\": \"tpu\" in the config")
-    if getattr(cfg.tpu, "bitstream", "spec") == "av1tpu":
-        raise EngineError(
-            "tpu.bitstream 'av1tpu' selects the retired legacy engine, "
-            "which is not ported to av1tpu_torch; use \"spec\"")
-    from av1tpu_torch.spec_engine import SpecTorchEngine
     try:
+        if getattr(cfg.tpu, "bitstream", "spec") == "av1tpu":
+            from av1tpu_torch.legacy.engine import LegacyTorchEngine
+            return LegacyTorchEngine(cfg.tpu, device=device)
+        from av1tpu_torch.spec_engine import SpecTorchEngine
         return SpecTorchEngine(cfg.tpu, device=device)
     except (RuntimeError, ValueError, NotImplementedError) as e:
         raise EngineError(f"engine unavailable on {device!r}: {e}") from e

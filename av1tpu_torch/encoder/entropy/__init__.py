@@ -1,13 +1,16 @@
 # Copied from av1tpu/encoder/entropy/__init__.py (load_library, with the
 # range encoder's prototypes).
-"""The native spec-AV1 tile writer: build and load.
+"""The native tile writers: build and load.
 
-``native/`` holds the C++ range coder (``ec.cc``, ``ec.h``) and the tile
-walker (``spec_tile.cc``), copied from the JAX package.  They compile
-with ``g++`` at first use into ``av1tpu_torch/_build/``, keyed on a
-content hash of the sources and flags (the bitstream depends on this
-code, and checkouts do not preserve mtimes), and load through
-``ctypes``.  ``specav1.native`` binds the tile writer's entry points.
+``native/`` holds the C++ range coder (``ec.cc``, ``ec.h``) and the
+spec-AV1 tile walker (``spec_tile.cc``); ``legacy/native/tile.cc`` the
+private av1tpu profile's tile codec.  All are copied from the JAX
+package, which builds them into one library too.  They compile with
+``g++`` at first use into ``av1tpu_torch/_build/``, keyed on a content
+hash of the sources and flags (the bitstream depends on this code, and
+checkouts do not preserve mtimes), and load through ``ctypes``.
+``specav1.native`` binds the spec tile writer's entry points,
+``legacy.entropy_tile`` the legacy codec's.
 """
 
 from __future__ import annotations
@@ -20,13 +23,17 @@ import threading
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "native")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "_build")
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_LEGACY_DIR = os.path.join(_PKG_DIR, "legacy", "native")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # -march=native is safe: the library is built per host at first use,
 # never shipped
 CXXFLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra",
             "-funroll-loops", "-march=native", "-shared")
-_SOURCES = ("ec.cc", "spec_tile.cc")
+_SOURCES = (os.path.join(_NATIVE_DIR, "ec.cc"),
+            os.path.join(_NATIVE_DIR, "spec_tile.cc"),
+            os.path.join(_LEGACY_DIR, "tile.cc"))
 _lock = threading.Lock()
 _lib = None
 
@@ -47,10 +54,11 @@ def _host_cpu() -> bytes:
 
 def _src_hash() -> str:
     h = hashlib.sha256(" ".join(CXXFLAGS).encode() + _host_cpu())
-    for n in sorted(os.listdir(_NATIVE_DIR)):
-        if n.endswith((".cc", ".h")):
-            with open(os.path.join(_NATIVE_DIR, n), "rb") as f:
-                h.update(n.encode() + b"\0" + f.read() + b"\0")
+    for d in (_NATIVE_DIR, _LEGACY_DIR):
+        for n in sorted(os.listdir(d)):
+            if n.endswith((".cc", ".h")):
+                with open(os.path.join(d, n), "rb") as f:
+                    h.update(n.encode() + b"\0" + f.read() + b"\0")
     return h.hexdigest()[:16]
 
 
@@ -63,7 +71,7 @@ def build_library() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     cmd = [os.environ.get("CXX", "g++"), *CXXFLAGS, "-I", _NATIVE_DIR,
-           "-o", tmp, *(os.path.join(_NATIVE_DIR, n) for n in _SOURCES)]
+           "-o", tmp, *_SOURCES]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError("g++ failed:\n" + res.stdout + res.stderr)

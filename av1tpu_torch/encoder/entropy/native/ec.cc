@@ -1,4 +1,5 @@
-// Copied from av1tpu/encoder/entropy/native/ec.cc (the encoder half).
+// Copied from av1tpu/encoder/entropy/native/ec.cc (the decoder half serves
+// the legacy tile reader, av1tpu_torch/legacy/native/tile.cc).
 // AV1-style multisymbol adaptive range coder — see ec.h.
 #include "ec.h"
 
@@ -175,4 +176,117 @@ extern "C" int32_t ec_enc_done(EcEnc *e, uint8_t *out, int32_t cap) {
   }
   assert(carry == 0);
   return nbytes;
+}
+
+// ---------------------------------------------------------------------------
+// Decoder (32-bit window, all-ones complement convention)
+
+struct EcDec {
+  const uint8_t *buf;
+  const uint8_t *end;
+  const uint8_t *bptr;
+  uint32_t dif;
+  uint32_t rng;
+  int cnt;
+};
+
+static void dec_refill(EcDec *d) {
+  uint32_t dif = d->dif;
+  int cnt = d->cnt;
+  const uint8_t *bptr = d->bptr;
+  const uint8_t *end = d->end;
+  int s = 32 - 9 - (cnt + 15);
+  for (; s >= 0 && bptr < end; s -= 8, bptr++) {
+    dif ^= static_cast<uint32_t>(bptr[0]) << s;
+    cnt += 8;
+  }
+  if (bptr >= end) {
+    cnt = 16384;  // "lots of bits": reads past end behave as zeros
+  }
+  d->dif = dif;
+  d->cnt = cnt;
+  d->bptr = bptr;
+}
+
+extern "C" EcDec *ec_dec_create(const uint8_t *buf, int32_t size) {
+  EcDec *d = new EcDec;
+  d->buf = buf;
+  d->end = buf + size;
+  d->bptr = buf;
+  d->dif = (1u << 31) - 1;
+  d->rng = 0x8000;
+  d->cnt = -15;
+  dec_refill(d);
+  return d;
+}
+
+extern "C" void ec_dec_destroy(EcDec *d) { delete d; }
+
+static int dec_normalize(EcDec *d, uint32_t dif, uint32_t rng, int ret) {
+  int s = 16 - ilog_nz(rng);
+  d->cnt -= s;
+  d->dif = ((dif + 1) << s) - 1;
+  d->rng = rng << s;
+  if (d->cnt < 0) dec_refill(d);
+  return ret;
+}
+
+extern "C" int ec_dec_symbol(EcDec *d, const uint16_t *icdf, int nsyms) {
+  uint32_t dif = d->dif;
+  uint32_t r = d->rng;
+  const int N = nsyms - 1;
+  uint32_t c = dif >> (32 - 16);
+  uint32_t v = r;
+  uint32_t u;
+  int ret = -1;
+  do {
+    u = v;
+    ++ret;
+    v = ec_scale(r, icdf[ret]) + kMinProb * (N - ret);
+  } while (c < v);
+  dif -= static_cast<uint32_t>(v) << (32 - 16);
+  r = u - v;
+  return dec_normalize(d, dif, r, ret);
+}
+
+extern "C" int ec_dec_symbol_adapt(EcDec *d, uint16_t *cdf, int nsyms) {
+  int ret = ec_dec_symbol(d, cdf, nsyms);
+  cdf_update(cdf, ret, nsyms);
+  return ret;
+}
+
+extern "C" int ec_dec_bool(EcDec *d, unsigned f15) {
+  uint32_t dif = d->dif;
+  uint32_t r = d->rng;
+  uint32_t v = ec_scale(r, f15) + kMinProb;
+  uint32_t vw = v << (32 - 16);
+  int ret = 1;
+  uint32_t new_r = v;
+  if (dif >= vw) {
+    new_r = r - v;
+    dif -= vw;
+    ret = 0;
+  }
+  return dec_normalize(d, dif, new_r, ret);
+}
+
+extern "C" int ec_dec_bool_adapt(EcDec *d, uint16_t *cdf) {
+  int ret = ec_dec_bool(d, cdf[0]);
+  cdf_update(cdf, ret, 2);
+  return ret;
+}
+
+extern "C" uint32_t ec_dec_literal(EcDec *d, int bits) {
+  uint32_t v = 0;
+  for (int i = 0; i < bits; ++i) {
+    v = (v << 1) | ec_dec_bool(d, kProbTop / 2);
+  }
+  return v;
+}
+
+extern "C" void cdf_init_uniform(uint16_t *cdf, int nsyms) {
+  for (int i = 0; i < nsyms; ++i) {
+    cdf[i] = static_cast<uint16_t>(kProbTop - kProbTop * (i + 1) / nsyms);
+  }
+  cdf[nsyms] = 0;  // adaptation counter
 }

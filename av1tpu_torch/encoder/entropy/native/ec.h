@@ -1,11 +1,12 @@
-// Copied from av1tpu/encoder/entropy/native/ec.h (the encoder half; the
-// port decodes with the Python msac in specav1/msac.py).
+// Copied from av1tpu/encoder/entropy/native/ec.h.
 // AV1-style multisymbol adaptive range coder (daala EC lineage).
 //
 // The sequential host-side half of the encoder (SURVEY.md §7 "entropy"):
 // 15-bit probabilities, inverse-CDF (icdf) convention where icdf[s] =
 // 32768 - cdf[s], EC_PROB_SHIFT=6 truncation with EC_MIN_PROB=4 floor per
-// symbol, carry-propagating byte output.
+// symbol, carry-propagating byte output.  The decoder half is the
+// conformance inverse path.  Replaces the entropy engine inside the
+// reference's exec'd ffmpeg binary (SURVEY.md §2 #16).
 #ifndef AV1TPU_EC_H_
 #define AV1TPU_EC_H_
 
@@ -14,6 +15,7 @@
 extern "C" {
 
 typedef struct EcEnc EcEnc;
+typedef struct EcDec EcDec;
 
 EcEnc *ec_enc_create(void);
 void ec_enc_reset(EcEnc *e);
@@ -35,7 +37,16 @@ int32_t ec_enc_size_hint(const EcEnc *e);
 // coarse: byte-resolution + window occupancy).
 int64_t ec_enc_tell_bits(const EcEnc *e);
 
+EcDec *ec_dec_create(const uint8_t *buf, int32_t size);
+void ec_dec_destroy(EcDec *d);
+int ec_dec_symbol(EcDec *d, const uint16_t *icdf, int nsyms);
+int ec_dec_symbol_adapt(EcDec *d, uint16_t *cdf, int nsyms);
+int ec_dec_bool(EcDec *d, unsigned f15);
+int ec_dec_bool_adapt(EcDec *d, uint16_t *cdf);
+uint32_t ec_dec_literal(EcDec *d, int bits);
+
 // icdf helpers: layout [icdf[0..nsyms-1], counter]
+void cdf_init_uniform(uint16_t *cdf, int nsyms);
 void cdf_update(uint16_t *cdf, int val, int nsyms);
 
 }  // extern "C"

@@ -1,10 +1,11 @@
-"""Full-pel motion search: the ``search_v3`` and ``gather_blocks``
-subset of ``av1tpu/encoder/kernels/motion.py``.
+"""Motion search: the ``search_v3``, ``gather_blocks`` and
+``subpel_refine`` subset of ``av1tpu/encoder/kernels/motion.py``.
 
 Stage 1: a +-8 shift scan on 8x-downsampled planes (+-64 full-pel) sets
 per-block seeds.  Stage 2: K2 refines +-8 around the zero seed and
 around the coarse seed.  Final: best-of with the exact zero-MV SSD and
-a rate-aware zero bias.
+a rate-aware zero bias.  ``subpel_refine`` (the private av1tpu
+profile's quarter-pel step) refines the full-pel winner on a 7x7 grid.
 
 The reference's coarse scan is a ``lax.scan`` over the 289 frame shifts;
 here it is one batched tensor op over all shifts, keeping the strict
@@ -132,3 +133,58 @@ def zero_ssd(src: torch.Tensor, center: torch.Tensor, n: int):
     """Per-block zero-MV SSD (B,) float32, summed exactly in int32."""
     d = src - center
     return _block_sum(d * d, n).reshape(-1).to(torch.float32)
+
+
+def subpel_refine(src_blocks: torch.Tensor, ref_pad: torch.Tensor,
+                  pos: torch.Tensor, mv_full: torch.Tensor, n: int,
+                  pad: int = PAD, maxval: int = 255) -> torch.Tensor:
+    """Quarter-pel refinement around the full-pel winner (port of
+    motion.subpel_refine): the 7x7 quarter-pel grid (+-3/4 pel) with the
+    normative interpolation, one region per block, the horizontal pass
+    of each column offset shared by its 7 vertical phases.  Returns MVs
+    in q4 units.  The full-pel centre stays unless the best candidate's
+    SAD beats it by a quarter.  As in the reference, the first
+    candidate (-3, -3) only seeds the running minimum: if it stays the
+    minimum, the offset stays (0, 0)."""
+    from av1tpu_torch.encoder.kernels import mc
+
+    taps = mc.LUMA_TAPS
+    B = src_blocks.shape[0]
+    R = n + taps - 1 + 1          # covers candidate floor in {-1, 0}
+    off = taps // 2 - 1
+    hp2, wp2 = ref_pad.shape
+    r0 = (pos[:, 0] + pad + mv_full[:, 0] - off - 1).clamp(0, hp2 - R)
+    c0 = (pos[:, 1] + pad + mv_full[:, 1] - off - 1).clamp(0, wp2 - R)
+    regions = mc.windows(ref_pad, r0, c0, R).to(torch.int32)
+    src_f = src_blocks.to(torch.int32)
+    center_q = mv_full * (1 << mc.MV_PREC)
+    best_ssd = center_ssd = None
+    best_dq = torch.zeros((B, 2), dtype=torch.int32, device=src_f.device)
+    ftab = mc.luma_filters()
+    for qx in range(-3, 4):
+        fx, px = (qx >> 2), qx & 3
+        sub_x = regions[:, :, 1 + fx:1 + fx + n + taps - 1]
+        htmp = mc._hfilter(sub_x, ftab[px], n, taps)      # (B, R, n)
+        for qy in range(-3, 4):
+            fy, py = (qy >> 2), qy & 3
+            vt = htmp[:, 1 + fy:1 + fy + n + taps - 1, :]
+            out = mc._vfilter(vt, ftab[py], n, taps)
+            out = (out + (1 << (mc.FINAL_SHIFT - 1))) >> mc.FINAL_SHIFT
+            pred = out.clamp(0, maxval)
+            ssd = (src_f - pred).abs().sum((1, 2), dtype=torch.int32)
+            if qy == 0 and qx == 0:
+                center_ssd = ssd
+            if best_ssd is None:
+                best_ssd = ssd
+            else:
+                take = ssd < best_ssd
+                best_ssd = torch.minimum(best_ssd, ssd)
+                best_dq = torch.where(
+                    take[:, None],
+                    torch.tensor([qy, qx], dtype=torch.int32,
+                                 device=src_f.device), best_dq)
+    # the reference compares in float32: center - center / 4.0 is exact
+    # there for SADs below 2^22 (32x32 blocks of 10-bit samples)
+    cf = center_ssd.to(torch.float32)
+    keep_center = best_ssd.to(torch.float32) >= cf - cf / 4.0
+    return torch.where(keep_center[:, None], center_q, center_q + best_dq)

@@ -35,7 +35,9 @@ Phases (any failure exits non-zero; nothing is caught):
               reproduce every frame's recon; prints the source decoders
               the machine has, the decode-verify verdict, self-test and
               transcode seconds, the job's encode_fps, the size ratio
-              and each chunk's upload (packed or raw)
+              and each chunk's upload (packed or raw); then make_engine
+              with tpu.bitstream "av1tpu" must build LegacyTorchEngine on
+              the card and its 1280x720 self-test must pass
   5. ops      the operator surfaces over the daemon phase's config and
               job directory: the doctor (doctor.main([cfg])) must be
               healthy with its accelerator line naming the card and its
@@ -111,7 +113,23 @@ Phases (any failure exits non-zero; nothing is caught):
               the coded frame, byte for byte, with K1 n x (3 + 5) and K2
               n x 3 launches a P-frame; key and P ms beside the one-device
               cell's
-  8. conform  256x144 streams (16-px strip) decoded by the port's own spec
+  8. legacy   the private av1tpu profile (tpu.bitstream "av1tpu",
+              LegacyTorchEngine, 32-px blocks at 1080p) through
+              encode_stream at qindex 96, with the launch counts set to 0
+              before each and read after:
+              legacy-1080p-chunk  slice-1080p-chunk8's 9 grainy frames at
+                                  speed 6: a key and two chunks of 4 (the
+                                  cap at 1080p), bytes equal to chunk=1's
+              legacy-1080p-golden slice-1080p-golden's 8 clean frames at
+                                  speed 4 (two references, transform
+                                  selection), chunk=1: the cut back codes
+                                  as a keyframe (the profile has no
+                                  golden-aware cut), the blends choose
+                                  GOLDEN on some blocks
+              K1 and K2 2 launches a P-frame for each reference searched;
+              every recon reproduced by the port's legacy decoder on the
+              CPU (decode workers); fps, bpp, Y-PSNR, key and P ms
+  9. conform  256x144 streams (16-px strip) decoded by the port's own spec
               decoder must equal the port's reconstruction, and the CPU run
               of the port must give the same bytes: a grainy golden-off
               1 key + 3 P, a clean golden key A, inter B, inter A with
@@ -120,7 +138,9 @@ Phases (any failure exits non-zero; nothing is caught):
               the default config at chunk=3 (key, a packed chunk of 3, a
               remainder of 1) through encode_stream; and a clean 256x256
               drift at chunk=3 over 4 stripes, which must decode to its
-              recon and equal its CPU run and the one-device stream
+              recon and equal its CPU run and the one-device stream; and a
+              320x192 private-profile key + 3 P at chunk=3, decoded by the
+              port's legacy decoder, card bytes = CPU bytes
 
 With --profile, one more P-frame of each golden path runs after the
 slices, timed with each in-loop filter stage (deblocking, CDEF, LR)
@@ -136,6 +156,7 @@ on the main path, error, timings and bound (per main-path shape under
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -414,6 +435,39 @@ def phase_kernels(dev):
                     log(f"K2 refine {sname} n={n} B={B} 10-bit: kernel "
                         f"{ms:.4f} ms  bound {bms:.4f} ({by})  share "
                         f"{bms / ms:.3f}")
+    # the private profile's 720p shape: 32-px blocks on planes padded to
+    # a multiple of 32 (736 x 1280 luma, B=920); search_v3 gathers W=48
+    # regions and refines n=32 (its 1080p shape is the 1080p one above)
+    hp, wp = 736 + 128, 1280 + 128
+    B = (736 // 32) * (1280 // 32)
+    plane = torch.as_tensor(rng.integers(0, 256, (hp, wp)),
+                            dtype=torch.int32, device=dev)
+    py, px = _k1_path_origins(rng, "luma", (hp, wp), 48, 32, B, dev)
+    got = gather.gather_windows(plane, py, px, 48)
+    want = gather.gather_windows_plain(plane, py, px, 48)
+    lib = plane.unfold(0, 48, 1).unfold(1, 48, 1)[py.long(), px.long()]
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(lib, want)):
+        fail(f"K1 720p legacy W=48 B={B} differs from plain")
+    _k1_row(f"720p legacy luma W=48 B={B} path",
+            lambda: gather.gather_windows(plane, py, px, 48),
+            lambda: gather.gather_windows_plain(plane, py, px, 48),
+            lambda: plane.unfold(0, 48, 1).unfold(1, 48, 1)[py.long(),
+                                                            px.long()],
+            _touched_bound((plane,), None, py, px, 48), k1_rows)
+    bt, rt = k2_inputs(rng, B, 32, 8, dev)
+    err, _, _ = k2_check(bt, rt, 32, f"720p legacy n=32 B={B}")
+    k2_err = max(k2_err, err)
+    ms = cuda_ms(lambda: refine.refine_ssd(bt, rt, 32, 8))
+    pms = cuda_ms(lambda: refine.refine_ssd_plain(bt, rt, 32, 8), iters=5)
+    bms, by = bound_ms(4 * B * (32 * 32 + 48 * 48) + 12 * B,
+                       3 * 289 * 32 * 32 * B)
+    k2_rows.append({"shape": f"720p legacy n=32 B={B}", "ms": ms,
+                    "plain_ms": pms, "library_ms": None, "bound_ms": bms,
+                    "bound_by": by, "share": bms / ms})
+    log(f"K2 refine 720p legacy n=32 B={B} 8-bit: kernel {ms:.4f} ms  plain "
+        f"{pms:.4f}  library none  bound {bms:.4f} ({by})  share "
+        f"{bms / ms:.3f}")
     sizes = ", ".join(SIZES)
     log(f"K1 equal to plain and to the library call at all shapes of "
         f"{sizes}, 8/10-bit, one plane and U+V in one launch (max_abs_err "
@@ -776,15 +830,17 @@ def decode_async(name: str, payloads, recons, what: str) -> None:
     check_async(name, what, _decode_job, [bytes(p) for p in payloads], host)
 
 
-def check_async(name: str, what: str, job, *args) -> None:
+def check_async(name: str, what: str, job, *args,
+                decoder: str = "spec decoder") -> None:
     """Runs ``job(*args)`` in a decode worker process; it returns (what
-    differs or None, seconds[, a line to print])."""
+    differs or None, seconds[, a line to print]).  ``decoder`` names the
+    decoder in the verdict line."""
     import multiprocessing
     if _decodes["pool"] is None:
         _decodes["pool"] = multiprocessing.get_context("spawn").Pool(
             DECODE_WORKERS)
-    _decodes["jobs"].append((name, what, _decodes["pool"].apply_async(
-        job, args)))
+    _decodes["jobs"].append((name, what, decoder, _decodes[
+        "pool"].apply_async(job, args)))
 
 
 def decode_wait() -> None:
@@ -794,13 +850,13 @@ def decode_wait() -> None:
     if pool is None:
         return
     t = time.perf_counter()
-    for name, what, job in _decodes["jobs"]:
+    for name, what, decoder, job in _decodes["jobs"]:
         err, secs, *note = job.get()
         if err:
             fail(f"{name}: {err}")
         for line in note:
             log(f"{name}: {line}")
-        log(f"{name}: the port's spec decoder reproduces the recon of "
+        log(f"{name}: the port's {decoder} reproduces the recon of "
             f"{what} exactly, three planes each (decode {secs:.1f} s in a "
             "worker process)")
     pool.close()
@@ -875,6 +931,23 @@ def check_filter_headers(name: str, r: dict) -> None:
         "restoration")
 
 
+def golden_clip(w: int, h: int):
+    """8 clean frames: scene A, five blends towards scene B (each step
+    under the scene-cut threshold), a cut back to A and one more A."""
+    import numpy as np
+
+    from av1tpu_torch.utils.cleansrc import clean_frame
+    from av1tpu_torch.utils.testsrc import Frame
+    frames = [clean_frame(w, h, 0, 0)]
+    for k in range(1, 6):
+        fa, fb = clean_frame(w, h, k, 0), clean_frame(w, h, k, 1)
+        frames.append(Frame(*(
+            (((5 - k) * pa.astype(np.int32) + k * pb.astype(np.int32) + 2)
+             // 5).astype(np.uint8)
+            for pa, pb in ((fa.y, fb.y), (fa.u, fb.u), (fa.v, fb.v)))))
+    return frames + [clean_frame(w, h, 6, 0), clean_frame(w, h, 7, 0)]
+
+
 def phase_slices(dev_name: str, daemon_payloads):
     """The full-size paths; returns each path's launch counts, its run
     (engine and last frame included), and what the stripe cells compare
@@ -885,7 +958,6 @@ def phase_slices(dev_name: str, daemon_payloads):
 
     from av1tpu_torch.spec_engine import noise_floor
     from av1tpu_torch.utils.cleansrc import clean_frame
-    from av1tpu_torch.utils.testsrc import Frame
     W, H, _ = SIZES["1080p"]
     counts, runs, refs = {}, {}, {}
 
@@ -942,14 +1014,7 @@ def phase_slices(dev_name: str, daemon_payloads):
 
     # two references: scene A, five blends towards scene B (each step
     # under the scene-cut threshold), then a cut back to A
-    frames = [clean_frame(W, H, 0, 0)]
-    for k in range(1, 6):
-        fa, fb = clean_frame(W, H, k, 0), clean_frame(W, H, k, 1)
-        frames.append(Frame(*(
-            (((5 - k) * pa.astype(np.int32) + k * pb.astype(np.int32) + 2)
-             // 5).astype(np.uint8)
-            for pa, pb in ((fa.y, fb.y), (fa.u, fb.u), (fa.v, fb.v)))))
-    frames += [clean_frame(W, H, 6, 0), clean_frame(W, H, 7, 0)]
+    frames = golden_clip(W, H)
     r = run_slice("slice-1080p-golden", frames, True, dev_name)
     if r["keys"] != [True] + [False] * 7:
         fail(f"slice-1080p-golden: expected one keyframe and an inter-coded "
@@ -1038,6 +1103,184 @@ def phase_stripes(dev_name: str, card: str, refs: dict) -> dict:
              refs["slice-720p-default"])):
         counts[name] = run_stripe_cell(name, ref["frames"], cfg, n, dev_name,
                                        card, ref)["launches"]
+    return counts
+
+
+def run_legacy(name: str, frames, cfg, dev_name: str, Q: int = 96) -> dict:
+    """One stream of the private av1tpu profile through
+    LegacyTorchEngine(cfg).encode_stream on the card, with the launch
+    counts set to 0 just before and read just after; each dispatch
+    bracketed by synchronizes (a chunk's ms is shared by its frames).
+    Returns the payloads, key flags, per-frame recons (int16 on the
+    card), GOLDEN shares, times and launches."""
+    import numpy as np
+    import torch
+
+    from av1tpu_torch.legacy.engine import LegacyTorchEngine
+
+    class Timed(LegacyTorchEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.rows = []    # (kind, ms, GOLDEN share, recon)
+
+        def _row(self, kind, ms, out, two):
+            share = float(out[13].float().mean()) if two else None
+            self.rows.append((kind, ms, share,
+                              tuple(p.to(torch.int16) for p in out[5:8])))
+
+        def _submit(self, frame, qindex, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pend = super()._submit(frame, qindex, **kw)
+            torch.cuda.synchronize()
+            self._row("key" if pend[0] else "inter",
+                      (time.perf_counter() - t) * 1e3, pend[4], pend[7])
+            return pend
+
+        def _submit_chunk(self, frames, qindexes):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pend = super()._submit_chunk(frames, qindexes)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3 / len(frames)
+            for out in pend[3]:
+                self._row("chunk", ms, out, pend[7])
+            return pend
+
+    N = len(frames)
+    H, W = frames[0].height, frames[0].width
+    eng = Timed(cfg, device=dev_name)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = list(eng.encode_stream(frames, Q))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if len(out) != N or len(eng.rows) != N:
+        fail(f"{name}: {len(out)} payloads, {len(eng.rows)} dispatched "
+             f"frames for {N}")
+    if any(t.device != eng.device for t in eng._ref_dev):
+        fail(f"{name}: reference planes are not on {eng.device}")
+    mse = [float(np.mean((r[3][0][:H, :W].cpu().numpy().astype(np.float64)
+                          - f.y) ** 2)) for r, f in zip(eng.rows, frames)]
+    psnr = 10 * np.log10(255.0 ** 2 / np.mean(mse))
+    if not np.isfinite(psnr) or psnr < 28.0:
+        fail(f"{name}: Y-PSNR {psnr} dB")
+    keys = [k for _, k in out]
+    key_ms = [r[1] for r in eng.rows if r[0] == "key"]
+    p_ms = [r[1] for r in eng.rows if r[0] != "key"]
+    bpp = sum(len(p) * 8 for p, _ in out) / (N * W * H)
+    log(f"{name}: {N} frames in {wall:.3f} s = {N / wall:.3f} fps, "
+        f"{bpp:.5f} bpp, Y-PSNR {psnr:.3f} dB (q{Q}), key "
+        f"{np.mean(key_ms):.1f} ms, P {np.mean(p_ms):.1f} ms (min "
+        f"{min(p_ms):.1f}) | speed {cfg.speed}, chunk {cfg.chunk}, "
+        f"dispatches {[r[0] for r in eng.rows]}")
+    log(f"{name}: frame types {['K' if k else 'P' for k in keys]}, bytes "
+        f"{[len(p) for p, _ in out]}, GOLDEN share per frame "
+        f"{['-' if r[2] is None else round(r[2], 4) for r in eng.rows]}")
+    n_p = N - sum(keys)
+    log(f"{name}: launches {launches}, per P-frame "
+        f"{ {k: round(v / n_p, 2) for k, v in launches.items()} }")
+    return {"eng": eng, "out": out, "keys": keys, "launches": launches,
+            "payloads": [p for p, _ in out], "recons": [r[3] for r in
+                                                        eng.rows],
+            "shares": [r[2] for r in eng.rows], "wall": wall}
+
+
+def _legacy_mismatch(payloads, recons, w: int, h: int) -> str | None:
+    """The port's legacy decoder (av1tpu_torch.legacy.decoder, on the
+    CPU) on a private-profile stream: None when every plane of every frame
+    equals the reconstruction given as host arrays, else what differs."""
+    import numpy as np
+
+    from av1tpu_torch.legacy import decoder
+    from av1tpu_torch.media import obu
+    state = decoder.DecoderState(device="cpu")
+    seq = obu.write_obu(obu.OBU_SEQUENCE_HEADER,
+                        obu.SequenceHeader(width=w, height=h).write())
+    if decoder.decode_frame_payload(seq, state) is not None:
+        return "the sequence header decoded to a frame"
+    for i, (p, rec) in enumerate(zip(payloads, recons)):
+        fr = decoder.decode_frame_payload(bytes(p), state)
+        for pl, got in enumerate((fr.y, fr.u, fr.v)):
+            hh, ww = got.shape
+            if not np.array_equal(got.astype(np.int64),
+                                  rec[pl][:hh, :ww].astype(np.int64)):
+                return f"legacy-decoded frame {i} plane {pl} != port recon"
+    return None
+
+
+def _legacy_decode_job(payloads, recons, w, h):
+    t = time.perf_counter()
+    return _legacy_mismatch(payloads, recons, w, h), time.perf_counter() - t
+
+
+def legacy_decode_async(name: str, r: dict, w: int, h: int) -> None:
+    host = [tuple(p.cpu().numpy() for p in rec) for rec in r["recons"]]
+    check_async(name, f"all {len(host)} frames", _legacy_decode_job,
+                [bytes(p) for p in r["payloads"]], host, w, h,
+                decoder="legacy decoder (on the CPU)")
+
+
+def phase_legacy(dev_name: str) -> dict:
+    """The private av1tpu profile (tpu.bitstream "av1tpu") on the card:
+    legacy-1080p-chunk, slice-1080p-chunk8's 9 grainy frames at speed 6
+    in two chunks of 4 (the cap at 1080p), bytes equal to chunk=1's; and
+    legacy-1080p-golden, slice-1080p-golden's 8 clean frames at speed 4
+    (two references, transform selection) and chunk=1.  K1 and K2 launch
+    twice a P-frame for each reference searched.  Each stream decodes to
+    its recon in the port's legacy decoder on the CPU (decode workers).
+    Returns the launch counts by path."""
+    import numpy as np
+
+    from av1tpu_torch.config import TpuEncoderConfig
+    W, H, _ = SIZES["1080p"]
+    rng = np.random.default_rng(7)
+    grain9 = [grainy_frame(W, H, i, rng) for i in range(9)]
+    t0 = time.perf_counter()
+    counts = {}
+    r = run_legacy("legacy-1080p-chunk", grain9,
+                   TpuEncoderConfig(bitstream="av1tpu", chunk=8), dev_name)
+    if [row[0] for row in r["eng"].rows] != ["key"] + ["chunk"] * 8 or \
+            r["keys"] != [True] + [False] * 8:
+        fail(f"legacy-1080p-chunk: dispatches "
+             f"{[x[0] for x in r['eng'].rows]}, frame types {r['keys']} "
+             "(a key, two chunks of 4)")
+    for k in ("gather_windows", "refine_ssd"):
+        if r["launches"][k] != 2 * 8:
+            fail(f"legacy-1080p-chunk: {k} launches {r['launches']}, "
+                 "expected 2 a P-frame (one reference)")
+    legacy_decode_async("legacy-1080p-chunk", r, W, H)
+    counts["legacy-1080p-chunk"] = r["launches"]
+    one = run_legacy("legacy-1080p-chunk1", grain9,
+                     TpuEncoderConfig(bitstream="av1tpu", chunk=1),
+                     dev_name)
+    if one["payloads"] != r["payloads"]:
+        fail("legacy-1080p-chunk: chunked bytes differ from chunk=1's")
+    log("legacy-1080p-chunk: two chunks of 4 give chunk=1's 9 payloads "
+        "byte for byte")
+    frames = golden_clip(W, H)
+    g = run_legacy("legacy-1080p-golden", frames,
+                   TpuEncoderConfig(bitstream="av1tpu", chunk=1, speed=4),
+                   dev_name)
+    # the profile has no golden-aware scene cut (the reference's
+    # TpuEngine neither): the cut back to scene A codes as a keyframe
+    if g["keys"] != [True] + [False] * 5 + [True, False]:
+        fail(f"legacy-1080p-golden: frame types {g['keys']}")
+    sh = [x for x in g["shares"] if x is not None]
+    if len(sh) != 6 or not any(x > 0 for x in sh):
+        fail(f"legacy-1080p-golden: GOLDEN shares {g['shares']}")
+    for k in ("gather_windows", "refine_ssd"):
+        if g["launches"][k] != 4 * 6:
+            fail(f"legacy-1080p-golden: {k} launches {g['launches']}, "
+                 "expected 4 a P-frame (two references)")
+    legacy_decode_async("legacy-1080p-golden", g, W, H)
+    counts["legacy-1080p-golden"] = g["launches"]
+    log(f"legacy: phase {time.perf_counter() - t0:.1f} s on the main "
+        "thread")
     return counts
 
 
@@ -1612,6 +1855,33 @@ def phase_conform(dev_name: str):
         "one-device stream byte for byte")
 
 
+def conform_legacy(dev_name: str) -> None:
+    """A 320x192 private-profile key + 3 P at chunk=3 (a key, one chunk
+    of 3): the card's bytes equal the CPU's and the port's legacy
+    decoder reproduces the card's recon."""
+    from av1tpu_torch.config import TpuEncoderConfig
+    from av1tpu_torch.utils.testsrc import testsrc2
+    frames = [testsrc2(320, 192, i) for i in range(4)]
+    cfg = TpuEncoderConfig(bitstream="av1tpu", chunk=3)
+    r = run_legacy("conform-legacy-320x192", frames, cfg, dev_name)
+    if [row[0] for row in r["eng"].rows] != ["key"] + ["chunk"] * 3:
+        fail(f"conformance (legacy): dispatches {r['eng'].rows}")
+    host = [tuple(p.cpu().numpy() for p in rec) for rec in r["recons"]]
+    err = _legacy_mismatch(r["payloads"], host, 320, 192)
+    if err:
+        fail(f"conformance (legacy): {err}")
+    from av1tpu_torch.legacy.engine import LegacyTorchEngine
+    cpu = [p for p, _ in LegacyTorchEngine(cfg, device="cpu").encode_stream(
+        frames, 96)]
+    if cpu != r["payloads"]:
+        fail("conformance (legacy): CPU and GPU runs of the port gave "
+             "different streams")
+    log("conformance 320x192 (private av1tpu profile, chunk=3: a key and "
+        "a chunk of 3): the port's legacy decoder reproduces the recon of "
+        "all 4 frames, and the CPU plain path and the GPU kernels give "
+        "byte-identical streams")
+
+
 def source_decoders() -> str:
     """Which source decoders this machine has: the system's libavcodec
     (``ldconfig -p``), the port's native decoder built on it, and cv2."""
@@ -1812,6 +2082,22 @@ def phase_daemon(card: str) -> dict:
         f"{['packed' if x else 'raw' for x in seen['packs']]} | {card}")
     log(f"{name}: launches {launches}, per P-frame "
         f"{ {k: round(v / n_p, 2) for k, v in launches.items()} }")
+    # the private profile: make_engine builds LegacyTorchEngine on the card
+    # and its self-test encodes the 1280x720 key there
+    from av1tpu_torch.legacy.engine import LegacyTorchEngine
+    lcfg = dataclasses.replace(cfg, tpu=dataclasses.replace(
+        cfg.tpu, bitstream="av1tpu"))
+    leng = engine_mod.make_engine(lcfg)
+    if not isinstance(leng, LegacyTorchEngine) or \
+            leng.device.type != "cuda":
+        fail(f"{name}: make_engine with bitstream 'av1tpu' built "
+             f"{type(leng).__name__} on {getattr(leng, 'device', '?')}")
+    torch.cuda.synchronize()
+    dt = engine_mod.verify_engine(leng, lcfg.tpu.self_test_size)
+    torch.cuda.synchronize()
+    log(f"{name}: make_engine with tpu.bitstream 'av1tpu' built "
+        f"LegacyTorchEngine on {leng.device}; its self-test "
+        f"({lcfg.tpu.self_test_size} key) {dt:.3f} s | {card}")
     return {"launches": launches, "payloads": muxed, "cfg": cfg,
             "root": root, "job": job}
 
@@ -2035,9 +2321,11 @@ def main() -> int:
     counts["daemon-1080p"] = daemon["launches"]
     counts["encode_clip"] = ops["launches"]
     counts.update(phase_stripes(dev_name, card, refs))
+    counts.update(phase_legacy(dev_name))
     if "--profile" in sys.argv[1:]:
         phase_profile(runs)
     phase_conform(dev_name)
+    conform_legacy(dev_name)
     decode_wait()
     shutil.rmtree(daemon["root"])
     log(f"smoke: {time.perf_counter() - t_start:.1f} s from start to the "

@@ -437,3 +437,32 @@ def test_doctor_encode_smoke_on_card(cuda, capsys):
     assert "320x192 keyframe on cuda:0" in out[0]
     assert out[1].startswith("[OK  ] accelerator: ")
     assert torch.cuda.get_device_name(0) in out[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("speed", [6, 4])
+def test_legacy_engine_card_bytes_equal_cpu_bytes(cuda, speed):
+    """The private av1tpu profile (tpu.bitstream "av1tpu") at 160x96,
+    key + 3 P through encode_stream at chunk=2 (a chunk of 2, a single P):
+    the card's payloads and recon equal the CPU's, and the P-frames
+    launch K1 and K2 (search_v3: 2 each a reference searched)."""
+    from av1tpu_torch.config import TpuEncoderConfig
+    from av1tpu_torch.legacy.engine import LegacyTorchEngine
+    from av1tpu_torch.utils.testsrc import testsrc2
+    frames = [testsrc2(160, 96, i) for i in range(4)]
+    outs, refs = [], []
+    for dev in ("cuda", "cpu"):
+        eng = LegacyTorchEngine(TpuEncoderConfig(bitstream="av1tpu",
+                                                 chunk=2, speed=speed),
+                                device=dev)
+        k1, k2 = gather.gather_windows.launches, refine.refine_ssd.launches
+        outs.append(list(eng.encode_stream(frames, 96)))
+        refs.append(eng._ref)
+        if dev == "cuda":
+            per = 2 if speed <= 4 else 1
+            assert gather.gather_windows.launches - k1 == 3 * 2 * per
+            assert refine.refine_ssd.launches - k2 == 3 * 2 * per
+    assert [k for _, k in outs[0]] == [True, False, False, False]
+    assert outs[0] == outs[1]
+    for a, b in zip(*refs):
+        assert np.array_equal(a, b)

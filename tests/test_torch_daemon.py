@@ -342,14 +342,21 @@ def test_run_once_real_pass(tmp_path, monkeypatch):
 
 
 def test_make_engine_and_self_test(tmp_path):
-    """No card: make_engine raises, and the daemon exits 1 rather than
-    encoding on the CPU.  The legacy bitstream and other encoders raise.
-    A CPU engine asked for explicitly passes the self-test."""
+    """No card: make_engine raises (for either bitstream), and the daemon
+    exits 1 rather than encoding on the CPU.  Other encoders raise.  The
+    legacy bitstream builds the port's LegacyTorchEngine.  A CPU engine
+    asked for explicitly passes the self-test."""
     import torch
+
+    from av1tpu_torch.legacy.engine import LegacyTorchEngine
     cfg = tconfig.TranscodeConfig()
+    legacy = tconfig.TranscodeConfig(
+        tpu=tconfig.TpuEncoderConfig(bitstream="av1tpu"))
     if not torch.cuda.is_available():
         with pytest.raises(tengine.EngineError, match="cuda"):
             tengine.make_engine(cfg)
+        with pytest.raises(tengine.EngineError, match="cuda"):
+            tengine.make_engine(legacy)
         lib = tmp_path / "lib"
         lib.mkdir()
         jy4m.write(str(lib / "clip.mkv"), [
@@ -361,10 +368,8 @@ def test_make_engine_and_self_test(tmp_path):
         assert tmain.main([str(p)]) == 1
         with open(lib / "clip.mkv", "rb") as f:  # source untouched
             assert f.read(9) == b"YUV4MPEG2"
-    legacy = tconfig.TranscodeConfig(
-        tpu=tconfig.TpuEncoderConfig(bitstream="av1tpu"))
-    with pytest.raises(tengine.EngineError, match="legacy"):
-        tengine.make_engine(legacy, device="cpu")
+    eng = tengine.make_engine(legacy, device="cpu")
+    assert isinstance(eng, LegacyTorchEngine) and eng.device.type == "cpu"
     with pytest.raises(tengine.EngineError, match="unknown encoder"):
         tengine.make_engine(dataclasses.replace(cfg, encoder="vaapi"),
                             device="cpu")

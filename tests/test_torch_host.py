@@ -376,3 +376,94 @@ def test_host_reference_encoder_matches_jax_package(filters):
         for a, b in zip(got, want):
             np.testing.assert_array_equal(np.asarray(a, np.int64),
                                           np.asarray(b, np.int64))
+
+
+def test_legacy_host_copies_match_jax_package():
+    """The private av1tpu profile's host copies give their originals'
+    bytes: the quantizer tables, the bit writer/reader, the OBU layer
+    (sequence and frame headers, frame OBUs with 1 and 4 tiles, parsing,
+    the av1C record) and the native tile codec (intra and inter tiles,
+    one and two references, 16- and 32-px blocks), encode and decode."""
+    from av1tpu.encoder import quant as j_quant
+    from av1tpu.encoder.entropy import bitio as j_bitio
+    from av1tpu.legacy import entropy_tile as j_tile
+    from av1tpu.media import obu as j_obu2
+    from av1tpu_torch.encoder import quant
+    from av1tpu_torch.encoder.entropy import bitio
+    from av1tpu_torch.legacy import entropy_tile as tile
+    from av1tpu_torch.media import obu as obu2
+    for bd in (8, 10):
+        np.testing.assert_array_equal(quant.ac_quant_table(bd),
+                                      j_quant.ac_quant_table(bd))
+        np.testing.assert_array_equal(quant.dc_quant_table(bd),
+                                      j_quant.dc_quant_table(bd))
+    writers = []
+    for mod in (bitio, j_bitio):
+        w = mod.BitWriter()
+        for v, n in ((5, 3), (0, 1), (300, 9), (1, 1)):
+            w.f(v, n)
+        w.uvlc(37)
+        w.ns(5, 7)
+        w.su(-3 & 0xF, 4)
+        w.trailing_bits()
+        writers.append(w.bytes() + mod.write_leb128(123456))
+    assert writers[0] == writers[1]
+    r = bitio.BitReader(writers[0])
+    assert [r.f(3), r.f(1), r.f(9), r.f(1), r.uvlc(), r.ns(7)] == \
+        [5, 0, 300, 1, 37, 5]
+    rng = np.random.default_rng(4)
+    for w, h, bd in ((160, 96, 8), (1920, 1080, 10)):
+        sh = obu2.SequenceHeader(width=w, height=h, bit_depth=bd,
+                                 color_primaries=9, color_transfer=16,
+                                 color_matrix=9)
+        jsh = j_obu2.SequenceHeader(width=w, height=h, bit_depth=bd,
+                                    color_primaries=9, color_transfer=16,
+                                    color_matrix=9)
+        assert sh.write() == jsh.write()
+        assert obu2.av1c_record(sh) == j_obu2.av1c_record(jsh)
+        assert obu2.SequenceHeader.parse(sh.write()) == sh
+        tiles = [bytes(rng.integers(0, 256, k, dtype=np.uint8))
+                 for k in (0, 5, 300, 2)]
+        for kw in (dict(frame_type=obu2.KEY_FRAME, lr_mode=2),
+                   dict(frame_type=obu2.INTER_FRAME, two_ref=True,
+                        refresh=False, cdef_on=False, tile_rows_log2=2)):
+            fh = obu2.FrameHeader(base_q_idx=77, width=w, height=h,
+                                  luma_block_log2=5, **kw)
+            jfh = j_obu2.FrameHeader(base_q_idx=77, width=w, height=h,
+                                     luma_block_log2=5, **kw)
+            for td in (tiles, tiles[2]):
+                a = obu2.write_frame_obu(fh, td)
+                assert a == j_obu2.write_frame_obu(jfh, td)
+                ((typ, data),) = obu2.parse_obus(a)
+                got, n = obu2.FrameHeader.parse(data)
+                assert typ == obu2.OBU_FRAME and got == fh
+                if isinstance(td, list):
+                    assert obu2.split_tiles(data[n:], 4) == tiles
+    for n, B in ((16, 12), (32, 5)):
+        c = n // 2
+        lv = [np.where(rng.random((B, k * k)) < 0.2,
+                       rng.integers(-900, 900, (B, k * k)), 0)
+              for k in (n, c, c)]
+        skips = (rng.random(B) < 0.3).astype(np.uint8)
+        for i in np.nonzero(skips)[0]:
+            for a in lv:
+                a[i] = 0
+        modes = rng.integers(0, 11, (2, B)).astype(np.uint8)
+        a = tile.encode_tile_intra(skips, *modes, *lv, n, c)
+        assert a == j_tile.encode_tile_intra(skips, *modes, *lv, n, c)
+        for got, want in zip(tile.decode_tile_intra(a, B, n, c),
+                             (skips, *modes, *lv)):
+            np.testing.assert_array_equal(got, want)
+        mvs = rng.integers(-200, 200, (B, 2)).astype(np.int32)
+        txs = rng.integers(0, 3, B).astype(np.uint8)
+        for refs in (None, rng.integers(0, 2, B).astype(np.uint8)):
+            a = tile.encode_tile_inter(skips, mvs, *lv, n, c, refs=refs,
+                                       txs=txs)
+            assert a == j_tile.encode_tile_inter(skips, mvs, *lv, n, c,
+                                                 refs=refs, txs=txs)
+            got = tile.decode_tile_inter(a, B, n, c,
+                                         use_refs=refs is not None)
+            assert all(np.array_equal(g, x)
+                       for g, x in zip(got, j_tile.decode_tile_inter(
+                           a, B, n, c, use_refs=refs is not None)))
+            np.testing.assert_array_equal(got[1], mvs)

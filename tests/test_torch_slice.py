@@ -115,7 +115,8 @@ def test_port_imports_no_jax():
 def test_port_encode_decode_loads_no_av1tpu():
     """A clean 64x64 key + P encode on the CPU with golden on (two
     references, loop filter on), decoded by the port's own spec decoder,
-    and one pass of the port's daemon (``run_once``: scan, probe,
+    the same frames through the private-profile engine (speed 4: two
+    references) and its decoder, and one pass of the port's daemon (``run_once``: scan, probe,
     transcode, size gate, decode-verify, atomic replace) over a library
     holding a 64x64 y4m stream named ``.mkv``, load neither jax nor any
     module of av1tpu; nor do the operator tools, the dashboard, the
@@ -153,6 +154,17 @@ def test_port_encode_decode_loads_no_av1tpu():
         "assert job.status == 'success' and job.encoded_frames == 2, "
         "job.reason\n"
         "assert open(src, 'rb').read(4) == b'\\x1a\\x45\\xdf\\xa3'\n"
+        "from av1tpu_torch.legacy import decoder as ldec\n"
+        "from av1tpu_torch.legacy.engine import LegacyTorchEngine\n"
+        "from av1tpu_torch.media import obu as lobu\n"
+        "le = LegacyTorchEngine(TpuEncoderConfig(bitstream='av1tpu', "
+        "speed=4), device='cpu')\n"
+        "lo = [le.encode_next(f, 96)[0] for f in fr]\n"
+        "st = ldec.DecoderState()\n"
+        "seq = lobu.write_obu(lobu.OBU_SEQUENCE_HEADER, "
+        "lobu.SequenceHeader(width=64, height=64).write())\n"
+        "got = [ldec.decode_frame_payload(p, st) for p in [seq] + lo]\n"
+        "assert got[0] is None and np.array_equal(got[2].y, le._ref[0])\n"
         "from av1tpu_torch.tools import doctor, encode_clip, quality\n"
         "from av1tpu_torch.tui import main, metrics\n"
         "metrics.collect()\n"
