@@ -138,15 +138,23 @@ def cdef_plane(rec: torch.Tensor, qindex: int, bit_depth: int = 8,
     return (rec + ((acc + 8) >> 4)).clamp(0, maxval)
 
 
+def gate_errors(src_y: torch.Tensor, rec_y: torch.Tensor,
+                cdef_y: torch.Tensor) -> torch.Tensor:
+    """The gate's squared errors against the source on 4x4-subsampled
+    luma, (CDEF off, CDEF on) as an int64 tensor: exact sums, which add
+    up over tile stripes whose heights are multiples of 4."""
+    sf = src_y[::4, ::4].to(torch.int64)
+    return torch.stack([((p[::4, ::4].to(torch.int64) - sf) ** 2).sum()
+                        for p in (rec_y, cdef_y)])
+
+
 def cdef_gate(src_y: torch.Tensor, rec_y: torch.Tensor,
               cdef_y: torch.Tensor) -> torch.Tensor:
     """Frame-level gate (a bool tensor on the device): keep CDEF only when
     it moves the luma recon toward the source, on 4x4-subsampled planes.
     The reference sums in float32; the port sums exactly."""
-    sf = src_y[::4, ::4].to(torch.int64)
-    e_off = ((rec_y[::4, ::4].to(torch.int64) - sf) ** 2).sum()
-    e_on = ((cdef_y[::4, ::4].to(torch.int64) - sf) ** 2).sum()
-    return e_on < e_off
+    e = gate_errors(src_y, rec_y, cdef_y)
+    return e[1] < e[0]
 
 
 def select(flag: torch.Tensor, a: torch.Tensor, b: torch.Tensor):

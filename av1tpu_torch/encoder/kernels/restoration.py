@@ -62,20 +62,25 @@ def apply_restoration(plane: torch.Tensor, mode: int = 0,
     return ((acc + 64) >> 7).clamp(0, maxval)
 
 
-def choose_mode(src_y: torch.Tensor, rec_y: torch.Tensor,
-                maxval: int = 255, tile_rows: int = 1) -> int:
-    """Encoder side: SSE argmin over all modes on 4x4-subsampled luma, each
+def mode_costs(src_y: torch.Tensor, rec_y: torch.Tensor,
+               maxval: int = 255, tile_rows: int = 1) -> torch.Tensor:
+    """Each mode's SSE against the source on 4x4-subsampled luma, the
     candidate filtered per tile stripe (stripe heights are multiples of
-    16, so the stripe-local grid equals the global one).  The reference
-    sums in float32; the port sums exactly and reads the choice once per
-    frame on the host (one sync)."""
+    16, so the stripe-local grid equals the global one): (N_MODES,)
+    int64, exact, so the costs of stripes add up to the frame's."""
     src = src_y[::4, ::4].to(torch.int64)
     rec_s = rec_y[::4, ::4]
     h4, w4 = rec_s.shape
     st = rec_s.reshape(tile_rows, h4 // tile_rows, w4)
-    costs = []
-    for m in range(N_MODES):
-        out = apply_restoration(st, m, maxval).reshape(h4, w4)
-        costs.append(((out.to(torch.int64) - src) ** 2).sum())
-    costs = torch.stack(costs).tolist()
+    return torch.stack([
+        ((apply_restoration(st, m, maxval).reshape(h4, w4).to(torch.int64)
+          - src) ** 2).sum() for m in range(N_MODES)])
+
+
+def choose_mode(src_y: torch.Tensor, rec_y: torch.Tensor,
+                maxval: int = 255, tile_rows: int = 1) -> int:
+    """Encoder side: the SSE argmin over all modes (``mode_costs``).  The
+    reference sums in float32; the port sums exactly and reads the choice
+    once per frame on the host (one sync)."""
+    costs = mode_costs(src_y, rec_y, maxval, tile_rows).tolist()
     return costs.index(min(costs))

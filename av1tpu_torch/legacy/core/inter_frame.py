@@ -1,11 +1,15 @@
 """Inter (P) frame encoding of the private av1tpu profile: a port of
-``av1tpu/legacy/core/inter_frame.py`` (the v2 path).
+``av1tpu/legacy/core/inter_frame.py``.
 
 Inter prediction references the previous reconstructed frame, so every
 block is independent: search → MC → transform → quantize → reconstruct
-as one batched pass.  The full-pel search is ``motion.search_v3`` (the
-K1 gather and the K2 refine, twice per reference searched), then the
-quarter-pel ``subpel_refine`` and the normative subpel MC.  The decoder
+as one batched pass.  In the v2 frame (the engine's) the full-pel
+search is ``motion.search_v3`` (the K1 gather and the K2 refine, twice
+per reference searched), then the quarter-pel ``subpel_refine`` and the
+normative subpel MC.  The v1 frame (``encode_inter_frame``, which only
+the stripe functions of ``legacy/mesh_sharding.py`` call) is full-pel:
+``motion.tss_search``, K1 gathers for the luma prediction and for U and
+V in one launch, DCT only, no in-loop filter, 8-bit.  The decoder
 reuses the same normative ops (MC, dequant, exact inverse transform,
 clip), so encoder recon == decoder recon bit-exactly.
 
@@ -26,7 +30,7 @@ from av1tpu_torch.encoder.kernels.motion import _to_blocks, first_argmin
 from av1tpu_torch.encoder.kernels.restoration import edge_pad
 from av1tpu_torch.legacy.core.intra_frame import filter_planes
 
-CHROMA_PAD = 32   # normative chroma padding (chroma MVs are half-range)
+CHROMA_PAD = motion.CHROMA_PAD
 
 
 def _from_blocks(blocks: torch.Tensor, hp: int, wp: int,
@@ -120,6 +124,60 @@ def block_positions(hp: int, wp: int, n: int, device) -> torch.Tensor:
             motion.block_positions(hp, wp, n), dtype=torch.int32,
             device=device)
     return t
+
+
+def _predict_v1(ref_y_pad, ref_u_pad, ref_v_pad, mvs, hp: int, wp: int,
+                n: int):
+    """Full-pel v1 predictions: luma blocks at pos + mv, U and V blocks at
+    pos + chroma_mv(mv) in one K1 launch."""
+    dev = mvs.device
+    cn = n // 2
+    pred_y = motion.gather_blocks(ref_y_pad, block_positions(hp, wp, n, dev),
+                                  mvs, n)
+    pred_uv = motion.gather_blocks((ref_u_pad, ref_v_pad),
+                                   block_positions(hp // 2, wp // 2, cn, dev),
+                                   motion.chroma_mv(mvs), cn, pad=CHROMA_PAD)
+    return pred_y, pred_uv[0], pred_uv[1]
+
+
+def encode_inter_frame(y, u, v, ref_y_pad, ref_u_pad, ref_v_pad, dc_step,
+                       ac_step, block: int):
+    """Encode one v1 P-frame (8-bit).  Planes padded to block multiples;
+    the references edge-padded by motion.PAD (luma) and CHROMA_PAD.
+    Returns (mvs (B, 2) int32, levels y / u / v (B, n*n) raster order,
+    recon y / u / v) as the reference does."""
+    n = block
+    cn = n // 2
+    hp, wp = y.shape
+    hc, wc = u.shape
+    mvs = motion.tss_search(y, ref_y_pad, n)
+    pred_y, pred_u, pred_v = _predict_v1(ref_y_pad, ref_u_pad, ref_v_pad,
+                                         mvs, hp, wp, n)
+    lv_y, rec_y = _code_plane(_to_blocks(y, n), pred_y, dc_step, ac_step)
+    lv_u, rec_u = _code_plane(_to_blocks(u, cn), pred_u, dc_step, ac_step)
+    lv_v, rec_v = _code_plane(_to_blocks(v, cn), pred_v, dc_step, ac_step)
+    return (mvs, lv_y.reshape(lv_y.shape[0], -1),
+            lv_u.reshape(lv_u.shape[0], -1), lv_v.reshape(lv_v.shape[0], -1),
+            _from_blocks(rec_y, hp, wp, n), _from_blocks(rec_u, hc, wc, cn),
+            _from_blocks(rec_v, hc, wc, cn))
+
+
+def decode_inter_frame(mvs, lv_y, lv_u, lv_v, ref_y_pad, ref_u_pad,
+                       ref_v_pad, dc_step, ac_step, hp: int, wp: int,
+                       block: int):
+    """Decoder-side v1 P-frame reconstruction (bit-identical to
+    ``encode_inter_frame``'s recon)."""
+    n = block
+    cn = n // 2
+    mvs = mvs.to(torch.int32)
+    pred_y, pred_u, pred_v = _predict_v1(ref_y_pad, ref_u_pad, ref_v_pad,
+                                         mvs, hp, wp, n)
+    rec_y = _recon_plane(lv_y.reshape(-1, n, n), pred_y, dc_step, ac_step)
+    rec_u = _recon_plane(lv_u.reshape(-1, cn, cn), pred_u, dc_step, ac_step)
+    rec_v = _recon_plane(lv_v.reshape(-1, cn, cn), pred_v, dc_step, ac_step)
+    return (_from_blocks(rec_y, hp, wp, n),
+            _from_blocks(rec_u, hp // 2, wp // 2, cn),
+            _from_blocks(rec_v, hp // 2, wp // 2, cn))
 
 
 def _inter_core_v2(y_u8, u_u8, v_u8, ref, dc_step, ac_step, qindex,

@@ -405,7 +405,9 @@ class SpecTorchEngine(TorchEngine):
         c = self.cfg
         if c.bitstream != "spec":
             raise NotImplementedError(
-                f"not ported to av1tpu_torch: bitstream {c.bitstream!r}")
+                f"SpecTorchEngine encodes bitstream 'spec', not "
+                f"{c.bitstream!r}; the private 'av1tpu' profile's engine is "
+                "LegacyTorchEngine (av1tpu_torch.legacy.engine)")
         if stripe_devices is None:
             # 0 and 1 keep one device: stripes issued from one thread are
             # slower on several cards than one card is alone (PERF.md)

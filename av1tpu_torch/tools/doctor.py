@@ -1,5 +1,5 @@
 # Copied from av1tpu/tools/doctor.py; check_tpu became check_gpu, and the
-# encode smoke runs SpecTorchEngine on the card (or on the CPU with --cpu).
+# encode smoke runs LegacyTorchEngine on the card (or on the CPU with --cpu).
 """Environment diagnostics — the consolidated analog of the reference's
 shell triage suite (check_arc_requirements.sh, check_gpu_access.sh,
 check_lxc_mounts.sh, fix_gpu_permissions.sh, test_av1d_write.sh,
@@ -127,11 +127,10 @@ def check_encode_smoke(device: str = "cuda") -> bool:
     try:
         import time
 
-        from av1tpu_torch.config import TpuEncoderConfig
-        from av1tpu_torch.spec_engine import SpecTorchEngine
+        from av1tpu_torch.legacy.engine import LegacyTorchEngine
         from av1tpu_torch.utils.testsrc import testsrc2
         t = time.perf_counter()
-        eng = SpecTorchEngine(TpuEncoderConfig(), device=device)
+        eng = LegacyTorchEngine(device=device)
         payload = eng.encode_keyframe(testsrc2(320, 192, 0), 96)
         dt = time.perf_counter() - t
         return _result("encode smoke", len(payload) > 0,

@@ -1,21 +1,18 @@
-# Copied from av1tpu/tools/encode_clip.py; it drives SpecTorchEngine and
-# verifies with the port's spec decoder (see the docstring).
-"""Encode a clip (synthetic or video file) to spec-AV1 IVF; optionally verify.
+# Copied from av1tpu/tools/encode_clip.py; it drives LegacyTorchEngine on
+# the card (the CPU with --cpu) and verifies with the port's legacy decoder.
+"""Encode a clip (synthetic or video file) to av1tpu IVF; optionally verify.
 
 Usage:
   python -m av1tpu_torch.tools.encode_clip --width 320 --height 192 \
       --frames 8 --out /tmp/x.ivf [--qindex 96] [--input source.mp4] \
       [--verify] [--cpu]
 
-Two departures from the JAX package's tool, whose engine and decoder
-(the retired ``bitstream: "av1tpu"`` TpuEngine and the legacy decoder)
-are not ported: frames go one at a time through
-``SpecTorchEngine(TpuEncoderConfig()).encode_next`` on the card (on the
-CPU with ``--cpu``; without it and without a card the tool fails), and
-the IVF holds spec-AV1 temporal units, each a temporal delimiter OBU
-and the frame's payload (a keyframe's payload carries the
-``SpecSequenceHeader`` OBU), which ``--verify`` decodes with the port's
-spec decoder.
+Frames go one at a time through ``LegacyTorchEngine.encode_next`` (the
+private av1tpu profile) on the card, or on the CPU with ``--cpu``;
+without it and without a card the tool fails.  Each IVF frame is a
+temporal delimiter OBU, the sequence header OBU on frame 0, and the
+frame's payload; ``--verify`` decodes the file with the port's legacy
+decoder and reports the Y-PSNR.
 """
 
 from __future__ import annotations
@@ -43,21 +40,19 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from av1tpu_torch.config import TpuEncoderConfig
-    from av1tpu_torch.media import ivf
-    from av1tpu_torch.spec_engine import SpecTorchEngine
-    from av1tpu_torch.specav1 import obu as obu_mod
+    from av1tpu_torch.legacy.engine import LegacyTorchEngine
+    from av1tpu_torch.media import ivf, obu as obu_mod
     from av1tpu_torch.utils.testsrc import testsrc2
 
     try:
-        engine = SpecTorchEngine(TpuEncoderConfig(keyint=args.keyint),
-                                 device="cpu" if args.cpu else "cuda")
+        engine = LegacyTorchEngine(device="cpu" if args.cpu else "cuda")
     except RuntimeError as e:
         print(f"encode_clip: {e}", file=sys.stderr)
         return 1
+    engine.cfg.keyint = args.keyint
     if args.input:
         frames = []
-        for i, fr in enumerate(SpecTorchEngine.iter_source_frames(
+        for i, fr in enumerate(LegacyTorchEngine.iter_source_frames(
                 args.input)):
             if i >= args.frames:
                 break
@@ -69,6 +64,7 @@ def main(argv=None) -> int:
         print("no frames", file=sys.stderr)
         return 1
     w, h = frames[0].width, frames[0].height
+    sh = engine.sequence_header(w, h)
 
     t0 = time.monotonic()
     total = 0
@@ -79,8 +75,11 @@ def main(argv=None) -> int:
         for i, fr in enumerate(frames):
             payload, is_key = engine.encode_next(fr, args.qindex)
             n_key += is_key
-            unit = obu_mod.make_obu(obu_mod.OBU_TEMPORAL_DELIMITER,
-                                    b"") + payload
+            unit = obu_mod.write_obu(obu_mod.OBU_TEMPORAL_DELIMITER, b"")
+            if i == 0:
+                unit += obu_mod.write_obu(obu_mod.OBU_SEQUENCE_HEADER,
+                                          sh.write())
+            unit += payload
             ivf.write_frame(f, unit, i)
             total += len(unit)
     dt = time.monotonic() - t0
@@ -89,13 +88,11 @@ def main(argv=None) -> int:
           f"{total} bytes ({total*8/len(frames)/(w*h):.4f} bpp)")
 
     if args.verify:
-        from av1tpu_torch.specav1 import decoder
-        with open(args.out, "rb") as f:
-            ivf.read_header(f)
-            out = decoder.decode_stream([tu for tu, _ in ivf.iter_frames(f)])
+        from av1tpu_torch.legacy import decoder
+        out = decoder.decode_ivf(args.out)
         psnrs = []
         for src, dec in zip(frames, out):
-            err = src.y.astype(np.float64) - dec[0].astype(np.float64)
+            err = src.y.astype(np.float64) - dec.y.astype(np.float64)
             mse = (err ** 2).mean()
             psnrs.append(99.0 if mse == 0 else 10 * np.log10(255 ** 2 / mse))
         print(f"decoded {len(out)} frames, Y-PSNR avg "

@@ -1,13 +1,13 @@
-# Copied from av1tpu/tools/quality.py; AV1 streams decode with the port's
-# spec decoder in place of the legacy decoder.
+# Copied from av1tpu/tools/quality.py; imports rewired to av1tpu_torch.
 """Quality measurement: PSNR + SSIM between a reference and an encoding.
 
 The VMAF-parity measurement surface (BASELINE.md: equal-VMAF target;
 libvmaf is unavailable in this environment, so PSNR/SSIM are the recorded
-fidelity metrics).  Decodes AV1 IVF and Matroska streams with the port's
-spec decoder (the av1C config OBUs first, for Matroska) and anything
-else through ``TorchEngine.iter_source_frames`` (y4m, libavcodec, cv2).
-Nothing here touches the card.
+fidelity metrics).  Decodes the private av1tpu profile's IVF and
+Matroska streams with the port's legacy decoder on the CPU (the av1C
+config OBUs first, for Matroska) and anything else through
+``TorchEngine.iter_source_frames`` (y4m, libavcodec, cv2).  Nothing here
+touches the card.
 
 Usage:
   python -m av1tpu_torch.tools.quality --ref src.mp4 --dist out.mkv [--frames N]
@@ -49,33 +49,31 @@ def ssim(a: np.ndarray, b: np.ndarray, maxval: float = 255.0) -> float:
 
 
 def _iter_frames(path: str):
-    """Yield luma planes; AV1 MKV/IVF via the spec decoder, else the
+    """Yield luma planes; av1tpu MKV/IVF via our decoder, else the
     engine's source decoders."""
     from av1tpu_torch.media.probe import probe_file, ProbeError
     try:
         pr = probe_file(path)
-        is_av1 = pr.has_av1
+        is_ours_av1 = pr.has_av1
     except ProbeError:
-        is_av1 = False
-    if is_av1:
-        from av1tpu_torch.media import ivf, mkv
-        from av1tpu_torch.specav1 import decoder as dec_mod
-        dec = dec_mod.Decoder()
+        is_ours_av1 = False
+    if is_ours_av1:
+        from av1tpu_torch.legacy import decoder as dec_mod
+        from av1tpu_torch.media import mkv
         if path.lower().endswith(".ivf"):
-            with open(path, "rb") as f:
-                ivf.read_header(f)
-                for tu, _ in ivf.iter_frames(f):
-                    for fr in dec.decode_tu(tu):
-                        yield fr[0]
+            for fr in dec_mod.decode_ivf(path):
+                yield fr.y
             return
         with open(path, "rb") as f:
             m = mkv.parse(f)
             v = [t for t in m.tracks if t.codec_id == "V_AV1"][0]
-            dec.decode_tu(v.codec_private[4:])
+            state = dec_mod.DecoderState()
+            dec_mod.decode_frame_payload(v.codec_private[4:], state)
             for pkt in mkv.iter_packets(f, m):
                 if pkt.track_number == v.number:
-                    for fr in dec.decode_tu(pkt.data):
-                        yield fr[0]
+                    fr = dec_mod.decode_frame_payload(pkt.data, state)
+                    if fr is not None:
+                        yield fr.y
         return
     from av1tpu_torch.engine import TorchEngine
     for fr in TorchEngine.iter_source_frames(path):

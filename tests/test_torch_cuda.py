@@ -466,3 +466,83 @@ def test_legacy_engine_card_bytes_equal_cpu_bytes(cuda, speed):
     assert outs[0] == outs[1]
     for a, b in zip(*refs):
         assert np.array_equal(a, b)
+
+
+def _mesh_inputs(dev, w=64, h=512):
+    """The CPU tests' 512x64 P-frame pair: int32 planes (current, then
+    reference) and their uint8 forms on ``dev``."""
+    from av1tpu_torch.utils.testsrc import testsrc2
+    fr = [testsrc2(w, h, i) for i in range(2)][::-1]
+    p8 = [torch.as_tensor(p, device=dev) for f in fr for p in (f.y, f.u,
+                                                                f.v)]
+    return [p.to(torch.int32) for p in p8], p8
+
+
+def _mesh_outputs(group, planes, p8):
+    """The three stripe functions of the private profile over ``group``."""
+    from av1tpu_torch.encoder import quant
+    from av1tpu_torch.legacy import mesh_sharding as M
+    dq = (quant.dc_q(96), quant.ac_q(96))
+    return (M.encode_inter_frame_sharded(*planes, *dq, 16, group),
+            M.encode_inter_frame_sharded_v2(*p8, *dq, 96, 16, group),
+            M.encode_key_frame_sharded_v2(*p8[:3], *dq, 96, 16, group))
+
+
+def _mesh_equal(a, b):
+    for ta, tb in zip(a, b):
+        assert len(ta) == len(tb)
+        for x, y in zip(ta, tb):
+            assert torch.equal(torch.as_tensor(x).cpu().long(),
+                               torch.as_tensor(y).cpu().long())
+
+
+@pytest.mark.cuda
+def test_v1_pframe_card_equals_cpu(cuda):
+    """The private profile's v1 P-frame (full-pel tss_search) at 512x64
+    on the card: the CPU's outputs; K1 7 launches (2 region gathers, 4
+    block gathers, U+V in one) and K2 2; decode_inter_frame gives the
+    encoder's recon."""
+    from av1tpu_torch.encoder import quant
+    from av1tpu_torch.encoder.kernels import motion
+    from av1tpu_torch.encoder.kernels.restoration import edge_pad
+    from av1tpu_torch.legacy.core import inter_frame as IF
+    dq = (quant.dc_q(96), quant.ac_q(96))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        planes, _ = _mesh_inputs(dev)
+        pads = (motion.pad_ref(planes[3]),
+                *(edge_pad(p, motion.CHROMA_PAD, motion.CHROMA_PAD)
+                  for p in planes[4:]))
+        k1, k2 = gather.gather_windows.launches, refine.refine_ssd.launches
+        out = IF.encode_inter_frame(*planes[:3], *pads, *dq, 16)
+        if dev.type == "cuda":
+            assert gather.gather_windows.launches - k1 == 7
+            assert refine.refine_ssd.launches - k2 == 2
+        dec = IF.decode_inter_frame(*out[:4], *pads, *dq, 512, 64, 16)
+        assert all(torch.equal(a, b) for a, b in zip(dec, out[4:]))
+        outs.append(out)
+    _mesh_equal([outs[0]], [outs[1]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_stripe_functions_on_one_card_equal_cpu(cuda, n):
+    """encode_inter_frame_sharded, encode_inter_frame_sharded_v2 and
+    encode_key_frame_sharded_v2 over n stripes all on one card: the
+    CPU's outputs over n CPU stripes."""
+    got = _mesh_outputs((cuda,) * n, *_mesh_inputs(cuda))
+    cpu = torch.device("cpu")
+    want = _mesh_outputs((cpu,) * n, *_mesh_inputs(cpu))
+    _mesh_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_stripe_functions_across_two_cards_equal_one_card(cuda):
+    """The three stripe functions over 4 stripes alternating two cards
+    (every halo crosses cards) equal 4 stripes on one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    two = (torch.device("cuda", 0), torch.device("cuda", 1)) * 2
+    got = _mesh_outputs(two, *_mesh_inputs(two[0]))
+    want = _mesh_outputs((two[0],) * 4, *_mesh_inputs(two[0]))
+    _mesh_equal(got, want)

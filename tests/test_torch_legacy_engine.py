@@ -193,3 +193,29 @@ def test_make_engine_transcode_matches_jax(tmp_path):
     from av1tpu_torch.daemon import core as t_core
     assert t_core.verify_output_av1(outs["torch"]) == \
         j_core.verify_output_av1(outs["jax"])
+
+
+def test_encode_clip_matches_jax_tool(tmp_path):
+    """``encode_clip --cpu --verify`` at 160x96, 3 frames: the port's tool
+    (LegacyTorchEngine through encode_next, the legacy decoder) writes the
+    JAX package's tool's IVF bytes and prints its lines, timing aside."""
+    import contextlib
+    import io
+    import re
+
+    from av1tpu.tools import encode_clip as j_clip
+    from av1tpu_torch.tools import encode_clip as t_clip
+    got = {}
+    for name, mod in (("jax", j_clip), ("torch", t_clip)):
+        out = str(tmp_path / f"{name}.ivf")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rv = mod.main(["--cpu", "--width", str(W), "--height", str(H),
+                           "--frames", "3", "--out", out, "--verify"])
+        assert rv == 0
+        lines = [re.sub(r" in [0-9.]+s \([0-9.]+ fps\)", "", ln)
+                 for ln in buf.getvalue().splitlines()]
+        got[name] = (open(out, "rb").read(), lines)
+    assert got["torch"] == got["jax"]
+    assert got["torch"][1][0].startswith(f"encoded 3 frames (1 key) {W}x{H}")
+    assert got["torch"][1][1].startswith("decoded 3 frames, Y-PSNR avg")

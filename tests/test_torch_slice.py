@@ -118,10 +118,11 @@ def test_port_encode_decode_loads_no_av1tpu():
     the same frames through the private-profile engine (speed 4: two
     references) and its decoder, and one pass of the port's daemon (``run_once``: scan, probe,
     transcode, size gate, decode-verify, atomic replace) over a library
-    holding a 64x64 y4m stream named ``.mkv``, load neither jax nor any
-    module of av1tpu; nor do the operator tools, the dashboard, the
-    libaom binding and the host reference encoder, which no entry point
-    reaches."""
+    holding a 64x64 y4m stream named ``.mkv``, and the private profile's
+    three stripe functions (``legacy/mesh_sharding.py``) over 2 CPU
+    stripes at 64x128, load neither jax nor any module of av1tpu; nor do
+    the operator tools, the dashboard, the libaom binding and the host
+    reference encoder, which no entry point reaches."""
     code = (
         "import os, sys, tempfile\n"
         "import numpy as np\n"
@@ -165,6 +166,18 @@ def test_port_encode_decode_loads_no_av1tpu():
         "lobu.SequenceHeader(width=64, height=64).write())\n"
         "got = [ldec.decode_frame_payload(p, st) for p in [seq] + lo]\n"
         "assert got[0] is None and np.array_equal(got[2].y, le._ref[0])\n"
+        "import torch\n"
+        "from av1tpu_torch.encoder import quant\n"
+        "from av1tpu_torch.legacy import mesh_sharding as ms\n"
+        "g = ms.make_mesh(2, 'cpu')\n"
+        "f2 = [clean_frame(64, 128, i) for i in range(2)]\n"
+        "pl = [torch.as_tensor(p) for f in f2[::-1] for p in (f.y, f.u, "
+        "f.v)]\n"
+        "dq = (quant.dc_q(96), quant.ac_q(96))\n"
+        "o1 = ms.encode_inter_frame_sharded(*pl, *dq, 16, g)\n"
+        "o2 = ms.encode_inter_frame_sharded_v2(*pl, *dq, 96, 16, g)\n"
+        "o3 = ms.encode_key_frame_sharded_v2(*pl[:3], *dq, 96, 16, g)\n"
+        "assert o1[4].shape == o2[5].shape == o3[5].shape == (128, 64)\n"
         "from av1tpu_torch.tools import doctor, encode_clip, quality\n"
         "from av1tpu_torch.tui import main, metrics\n"
         "metrics.collect()\n"
