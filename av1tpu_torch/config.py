@@ -36,6 +36,7 @@ class TpuEncoderConfig:
     block_log2: int = 0        # 4=16px, 5=32px, 0=auto (32 at HD+)
     tile_rows_log2: int = 0    # extra tile rows (sharding raises this)
     num_chips: int = 0         # n >= 2: stripes on n devices; 0, 1: one
+    # (under the AV1TPU_* process group: 0 = one stripe a rank)
     speed: int = 6             # 0 (slowest/best) .. 9 (fastest)
     chunk: int = 8             # P-frames batched per device dispatch
     # quantizer rounding offset (deadzone: floor(|c|/q + 1 - qround)).

@@ -1,5 +1,5 @@
 # Copied from av1tpu/daemon/engine.py (the engines are SpecTorchEngine and
-# LegacyTorchEngine; no multi-host initialization).
+# LegacyTorchEngine; the multi-process group is torch.distributed's).
 """Engine bootstrap and self-test (the EnsureFFmpeg/VerifyFFmpeg analog).
 
 The reference downloads a static ffmpeg, verifies its version and encoder
@@ -13,9 +13,10 @@ smoke test: one synthetic 1280x720 frame through the full encode path
 With ``tpu.num_chips`` = n >= 2 and more than one visible card, the
 engine encodes each frame in tile-row stripes over up to n cards, in
 this one process (``SpecTorchEngine``'s stripe group; 0, the default,
-keeps one card).  The JAX package's multi-host
-``distributed.maybe_initialize`` has no counterpart: the stripes need no
-process group.
+keeps one card).  With the ``AV1TPU_*`` variables set, ``make_engine``
+first joins their process group (``encoder/mesh/distributed.py``, the
+reference's multi-host initialization): every rank runs the same daemon
+on its own card, and the stripes are the ranks, one each.
 """
 
 from __future__ import annotations
@@ -33,15 +34,21 @@ class EngineError(Exception):
 def make_engine(cfg, device: str = "cuda"):
     """Construct the configured engine ("tpu" is the only real engine)
     on ``device``: ``SpecTorchEngine``, striped over up to
-    ``cfg.tpu.num_chips`` cards where that is 2 or more, or with
+    ``cfg.tpu.num_chips`` cards where that is 2 or more (over the ranks
+    under the ``AV1TPU_*`` process group), or with
     ``tpu.bitstream: "av1tpu"`` the private profile's
     ``LegacyTorchEngine``.  A missing card raises EngineError; nothing
     falls back to the CPU unless the caller asks for it."""
+    from av1tpu_torch.encoder.mesh import distributed
     if cfg.encoder != "tpu":
         raise EngineError(
             f"unknown encoder '{cfg.encoder}' (this build provides 'tpu'); "
             "set \"encoder\": \"tpu\" in the config")
     try:
+        # multi-process init is env-driven and a no-op in one process; it
+        # runs before the first device touch, so that "cuda" is the
+        # rank's card (encoder/mesh/distributed.py)
+        distributed.maybe_initialize(device)
         if getattr(cfg.tpu, "bitstream", "spec") == "av1tpu":
             from av1tpu_torch.legacy.engine import LegacyTorchEngine
             return LegacyTorchEngine(cfg.tpu, device=device)

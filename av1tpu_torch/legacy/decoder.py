@@ -5,9 +5,10 @@ OBU parse → frame header → native tile decode → dequant + exact inverse
 transform + wavefront intra / subpel inter reconstruction → the loop
 filter chain (deblock, CDEF when the header sets it, the header's
 restoration preset, per tile stripe).  It runs the encoder's own
-normative ops, so its output equals the encoder's recon.  The decoder
-takes an explicit device (``DecoderState(device=...)``, the CPU by
-default).
+normative ops, so its output equals the encoder's recon.  It runs on
+the card unless the caller asks for the CPU (``DecoderState(device=
+"cpu")``, ``decode_ivf(path, device="cpu")``), as the original runs on
+JAX's default device.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from av1tpu_torch import device as D
 from av1tpu_torch.encoder import quant
 from av1tpu_torch.legacy import entropy_tile as tile_codec
 from av1tpu_torch.legacy.core import inter_frame, intra_frame
@@ -33,7 +35,7 @@ class DecoderState:
     seq: obu_mod.SequenceHeader | None = None
     ref: tuple | None = None     # (y, u, v) block-padded recon planes
     golden: tuple | None = None  # last keyframe recon (two_ref frames)
-    device: str = "cpu"
+    device: str = "cuda"
 
 
 def _padded_dims(w: int, h: int, block: int) -> tuple[int, int]:
@@ -55,7 +57,7 @@ def decode_frame_payload(payload: bytes, state: DecoderState) -> Frame | None:
 
 
 def _decode_frame(data: bytes, state: DecoderState) -> Frame:
-    dev = torch.device(state.device)
+    dev = D.resolve_device(state.device)
     fh, hdr_len = obu_mod.FrameHeader.parse(data)
     tile_data = data[hdr_len:]
     block = 1 << fh.luma_block_log2
@@ -115,7 +117,7 @@ def _decode_frame(data: bytes, state: DecoderState) -> Frame:
                  v=v[:ch, :cw].cpu().numpy().astype(dtype), bit_depth=bd)
 
 
-def decode_ivf(path: str, device: str = "cpu") -> list[Frame]:
+def decode_ivf(path: str, device: str = "cuda") -> list[Frame]:
     """Decode all frames of an av1tpu-profile IVF file."""
     from av1tpu_torch.media import ivf
     state = DecoderState(device=device)

@@ -1,33 +1,37 @@
 """Tile-row stripes of the private av1tpu profile: a port of
 ``av1tpu/legacy/mesh_sharding.py``.
 
-Each device of a stripe group (an ordered tuple of ``torch.device``s,
-one a stripe; repeats allowed, as in ``specav1/stripes.py``) encodes one
-horizontal stripe of the frame.  The reference runs one ``shard_map``
-program over a ("rows",) mesh; here one thread issues the stripes in
-order, each under its own device, and the outputs are gathered to the
-group's first device in stripe order (stripe-major is raster order).
+Each stripe of a stripe group (``specav1/stripes.py``: an ordered tuple
+of ``torch.device``s of one process, one a stripe, repeats allowed, or
+``Ranks``, one stripe a rank of a ``torch.distributed`` process group)
+encodes one horizontal stripe of the frame.  The reference runs one
+``shard_map`` program over a ("rows",) mesh; here one thread issues the
+stripes of a one-process group in order, each under its own device, and
+each rank its own stripe, and the outputs are gathered in stripe order
+(stripe-major is raster order) to the group's first device, or to every
+rank.
 
 * P-frames read the previous reconstruction through a padded window
-  per stripe (``stripes.halo_window`` at the plane's true height and
-  width: ``pad`` boundary rows copied from each vertical neighbour, the
-  frame's edge rows replicated at its top and bottom, the columns
-  edge-padded), which is the reference's ``ppermute`` halo exchange, so
-  motion is unrestricted across stripe edges within +-MAX_MV < PAD.
+  per stripe (``stripes.halo_windows`` at the plane's true height and
+  width: ``pad`` boundary rows from each vertical neighbour, copied or
+  all-gathered between ranks, the frame's edge rows replicated at its top
+  and bottom, the columns edge-padded), which is the reference's
+  ``ppermute`` halo exchange, so motion is unrestricted across stripe
+  edges within +-MAX_MV < PAD.
 * Keyframes need no halo: intra prediction never crosses tile rows, so
   each stripe runs its own wavefront (one tile).
 * The v2 functions filter each stripe on its own (deblock, CDEF, loop
   restoration), with the CDEF gate and the restoration mode decided for
   the whole frame: each stripe's squared-error sums on the [::4, ::4]
-  grid are added on the first device (the reference's ``psum``).  The
-  sums are exact integers; the reference's float32 sums agree while
-  they stay below 2^24.
+  grid are added up (the reference's ``psum``: on the first device, an
+  ``all_reduce`` between ranks).  The sums are exact integers; the
+  reference's float32 sums agree while they stay below 2^24.
 
 Each function equals the one-device encode with ``tile_rows`` = the
 stripe count.  The recon planes come back as uint8 at 8 bits and int16
-at 10 bits (the reference's uint16).  ``av1tpu/encoder/mesh/
-distributed.py`` (``jax.distributed`` across hosts) has no counterpart:
-a group is the devices of one process.
+at 10 bits (the reference's uint16).  Under the process group of
+``encoder/mesh/distributed.py`` (the reference's ``jax.distributed``)
+``make_mesh`` gives the group of every rank, one card a rank.
 """
 
 from __future__ import annotations
@@ -36,16 +40,27 @@ import torch
 
 from av1tpu_torch.encoder.kernels import cdef, deblock, mc, motion
 from av1tpu_torch.encoder.kernels import restoration
+from av1tpu_torch.encoder.mesh import distributed
 from av1tpu_torch.legacy.core import inter_frame as IF
 from av1tpu_torch.legacy.core import intra_frame as KF
-from av1tpu_torch.specav1.stripes import (gather_rows, halo_window,
-                                          on_device, shard_rows)
+from av1tpu_torch.specav1.stripes import (Ranks, gather_rows, halo_windows,
+                                          local, on_device, shard_rows,
+                                          sum_stripes)
 
 
 def make_mesh(n_devices: int = 0, device: str = "cuda") -> tuple:
     """The stripe group of ``n_devices`` devices: on ``"cuda"`` the first
     n visible cards (0: every visible card; more than are visible raises
-    ValueError), on ``"cpu"`` the CPU repeated (0: once)."""
+    ValueError), on ``"cpu"`` the CPU repeated (0: once).  Under a process
+    group, every rank, each on its own device (0 or the world size; any
+    other count raises ValueError)."""
+    if distributed.active():
+        world = distributed.world_size()
+        if n_devices not in (0, world):
+            raise ValueError(f"requested {n_devices} devices under a "
+                             f"process group of {world} ranks")
+        return Ranks(distributed.rank_device(device), world,
+                     distributed.rank())
     dev = torch.device(device)
     if dev.type == "cpu":
         return (dev,) * max(n_devices, 1)
@@ -65,14 +80,11 @@ def _check_rows(h: int, n_dev: int, block: int) -> None:
                          f"n_devices*block = {n_dev * block}")
 
 
-def _ref_windows(parts3, k: int, row0: int, h: int, w: int):
+def _ref_windows(group, parts3, k: int, row0: int, h: int, w: int):
     """Stripe k's padded Y, U and V reference windows (the reference's
     ``_exchange_ref_halos``)."""
-    return (halo_window(parts3[0], k, motion.PAD, h, w, row0),
-            halo_window(parts3[1], k, motion.CHROMA_PAD, h // 2, w // 2,
-                        row0 // 2),
-            halo_window(parts3[2], k, motion.CHROMA_PAD, h // 2, w // 2,
-                        row0 // 2))
+    c = (motion.CHROMA_PAD, h // 2, w // 2, row0 // 2)
+    return halo_windows(group, parts3, k, [(motion.PAD, h, w, row0), c, c])
 
 
 def encode_inter_frame_sharded(y, u, v, ref_y, ref_u, ref_v, dc_step,
@@ -84,7 +96,7 @@ def encode_inter_frame_sharded(y, u, v, ref_y, ref_u, ref_v, dc_step,
     ``inter_frame.encode_inter_frame``'s 7-tuple over the whole frame
     (stripe-major, which is raster order) on the group's first device,
     and the total count of nonzero levels (an int32 scalar there)."""
-    group = tuple(mesh)
+    group = mesh
     n_dev = len(group)
     h, w = y.shape
     _check_rows(h, n_dev, block)
@@ -99,19 +111,17 @@ def encode_inter_frame_sharded(y, u, v, ref_y, ref_u, ref_v, dc_step,
     refs = [shard_rows(group, p.to(torch.int32)) for p in (ref_y, ref_u,
                                                           ref_v)]
     outs, nz = [], []
-    for k, d in enumerate(group):
+    for k, d in local(group):
         with on_device(d):
             out = IF.encode_inter_frame(
                 src[0][k], src[1][k], src[2][k],
-                *_ref_windows(refs, k, k * stripe, h, w), dc_step, ac_step,
-                block)
+                *_ref_windows(group, refs, k, k * stripe, h, w), dc_step,
+                ac_step, block)
             nz.append(sum((lv != 0).sum(dtype=torch.int32)
                           for lv in out[1:4]))
         outs.append(out)
-    dev = group[0]
-    total = sum(c.to(dev) for c in nz)
-    return tuple(gather_rows([o[i] for o in outs], dev)
-                 for i in range(7)) + (total,)
+    return tuple(gather_rows(group, outs, range(7))) + (
+        sum_stripes(group, nz),)
 
 
 def _stripe_filters(rec_y, rec_u, rec_v, src_y, n: int, qindex: int,
@@ -130,25 +140,24 @@ def _stripe_filters(rec_y, rec_u, rec_v, src_y, n: int, qindex: int,
 
 def _frame_gates(group, stripes: list, bit_depth: int):
     """The frame's CDEF gate and restoration mode from every stripe's
-    partial sums (added on the first device), then each stripe's final
-    planes.  Returns ([(y, u, v)] per stripe in the output dtype,
-    lr_mode int, cdef_on bool tensor on the first device)."""
-    dev = group[0]
+    partial sums (``sum_stripes``), then the final planes of this
+    process's stripes.  Returns ([(y, u, v)] per stripe in the output
+    dtype, lr_mode int, cdef_on bool tensor on the first device)."""
     maxval = (1 << bit_depth) - 1
-    e = sum(s["e"].to(dev) for s in stripes)
+    e = sum_stripes(group, [s["e"] for s in stripes])
     cdef_on = e[1] < e[0]
     costs = []
-    for d, s in zip(group, stripes):
+    for (_, d), s in zip(local(group), stripes):
         with on_device(d):
             on = cdef_on.to(d)
             s["y"] = cdef.select(on, s["cdef_y"], s["y"])
             s["uv"] = cdef.select(on, s["cdef_uv"], s["uv"])
             costs.append(restoration.mode_costs(s["src"], s["y"], maxval))
-    total = sum(c.to(dev) for c in costs).tolist()
+    total = sum_stripes(group, costs).tolist()
     lr_mode = total.index(min(total))
     out_dtype = torch.uint8 if bit_depth == 8 else torch.int16
     planes = []
-    for d, s in zip(group, stripes):
+    for (_, d), s in zip(local(group), stripes):
         with on_device(d):
             oy = restoration.apply_restoration(s["y"], lr_mode, maxval)
             ouv = restoration.apply_restoration(s["uv"], lr_mode, maxval)
@@ -158,13 +167,12 @@ def _frame_gates(group, stripes: list, bit_depth: int):
 
 
 def _gather_outputs(group, rows: list, planes: list):
-    """Per-stripe block outputs and final planes gathered to the first
-    device in stripe order."""
-    dev = group[0]
-    blocks = [gather_rows([r[i] for r in rows], dev)
-              for i in range(len(rows[0]))]
-    recon = [gather_rows([p[i] for p in planes], dev) for i in range(3)]
-    return blocks, recon
+    """Per-stripe block outputs and final planes gathered in stripe order
+    (``gather_rows``, one exchange for all of them)."""
+    nb = len(rows[0])
+    out = gather_rows(group, [r + p for r, p in zip(rows, planes)],
+                      range(nb + 3))
+    return out[:nb], out[nb:]
 
 
 def _skips(lv_y, lv_u, lv_v):
@@ -181,7 +189,7 @@ def encode_inter_frame_sharded_v2(y_u8, u_u8, v_u8, ref_y_u8, ref_u_u8,
     y / u / v, lr_mode int, cdef_on, tx_syms uint8): the one-device
     ``encode_inter_frame_v2(..., tile_rows=n)`` outputs minus the sparse
     pack, in its order."""
-    group = tuple(mesh)
+    group = mesh
     n_dev = len(group)
     h, w = y_u8.shape
     _check_rows(h, n_dev, block)
@@ -196,9 +204,9 @@ def encode_inter_frame_sharded_v2(y_u8, u_u8, v_u8, ref_y_u8, ref_u_u8,
                                                           ref_u_u8,
                                                           ref_v_u8)]
     rows, stripes = [], []
-    for k, d in enumerate(group):
+    for k, d in local(group):
         with on_device(d):
-            ry, ru, rv = _ref_windows(refs, k, k * sh, h, w)
+            ry, ru, rv = _ref_windows(group, refs, k, k * sh, h, w)
             y, u, v = (p[k].to(torch.int32) for p in src)
             hp, wp = y.shape
             hc, wc = u.shape
@@ -243,14 +251,14 @@ def encode_key_frame_sharded_v2(y_u8, u_u8, v_u8, dc_step, ac_step,
     v, lr_mode int, cdef_on, uv_modes uint8): the one-device
     ``encode_key_frame_v2(..., tile_rows=n)`` outputs minus the sparse
     pack, in its order."""
-    group = tuple(mesh)
+    group = mesh
     h = y_u8.shape[0]
     _check_rows(h, len(group), block)
     n = block
     cn = n // 2
     src = [shard_rows(group, p) for p in (y_u8, u_u8, v_u8)]
     rows, stripes = [], []
-    for k, d in enumerate(group):
+    for k, d in local(group):
         with on_device(d):
             y = src[0][k].to(torch.int32)[None]
             uv = torch.stack([src[1][k], src[2][k]]).to(torch.int32)

@@ -12,7 +12,10 @@ in the same low-overhead framing as the JAX engine (keyframes carry
 On several devices (``num_chips`` >= 2, or an explicit tuple of stripe
 devices) each frame is encoded in horizontal stripes, one a device
 (``specav1.stripes``), and the stream is the one-device stream, byte for
-byte, as long as the tile plan is the same (up to 4 stripes).
+byte, as long as the tile plan is the same (up to 4 stripes).  Under the
+``AV1TPU_*`` process group (``encoder.mesh.distributed``) the stripes are
+the ranks, one card a rank, each encoding its stripe at the same time
+and every rank yielding the same stream.
 
 Supported configuration: the daemon's default (``TpuEncoderConfig()``:
 ``chunk=8``, ``delta_upload``, ``golden``, ``cdef`` and ``lr`` on) and
@@ -32,7 +35,9 @@ A chunk is packed, uploaded and issued on an ordered one-worker
 dispatch thread while the caller's thread entropy-codes older
 dispatches; the worker issues onto the streams that were current on the
 submitting thread, one a device, so stream order keeps every later
-reader behind the chunk's work.
+reader behind the chunk's work.  A striped frame outside a chunk is
+issued on that worker too (the caller waits for it), so that a rank's
+collectives all come from one thread, in submit order.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import torch
 from av1tpu_torch import device as D
 from av1tpu_torch.config import TpuEncoderConfig
 from av1tpu_torch.encoder import io_pack
+from av1tpu_torch.encoder.mesh import distributed
 from av1tpu_torch.engine import TorchEngine, _entropy_pool
 from av1tpu_torch.specav1 import lr as _NL
 from av1tpu_torch.specav1 import native
@@ -399,16 +405,28 @@ class SpecTorchEngine(TorchEngine):
         (repeats allowed: one card, or the CPU, then runs the striped
         arithmetic); without it the group is ``cfg.num_chips`` devices
         from ``device`` on (cards capped at the visible ones; the CPU
-        repeated)."""
+        repeated), or under a process group every rank, one stripe a rank
+        on the rank's device (``num_chips`` 0 or the world size)."""
         super().__init__(cfg)
-        self.device = D.resolve_device(device)
+        ranks = stripe_devices is None and distributed.active()
+        self.device = (distributed.rank_device(device) if ranks
+                       else D.resolve_device(device))
         c = self.cfg
         if c.bitstream != "spec":
             raise NotImplementedError(
                 f"SpecTorchEngine encodes bitstream 'spec', not "
                 f"{c.bitstream!r}; the private 'av1tpu' profile's engine is "
                 "LegacyTorchEngine (av1tpu_torch.legacy.engine)")
-        if stripe_devices is None:
+        if ranks:
+            world = distributed.world_size()
+            if int(c.num_chips) not in (0, world):
+                raise ValueError(
+                    f"num_chips {c.num_chips} under a process group of "
+                    f"{world} ranks: the stripes are the ranks (0 or "
+                    f"{world})")
+            stripe_devices = stripes.Ranks(self.device, world,
+                                           distributed.rank())
+        elif stripe_devices is None:
             # 0 and 1 keep one device: stripes issued from one thread are
             # slower on several cards than one card is alone (PERF.md)
             n = int(c.num_chips)
@@ -419,7 +437,8 @@ class SpecTorchEngine(TorchEngine):
                                   for i in range(n)]
             else:
                 stripe_devices = [self.device] * n
-        self._group = tuple(D.resolve_device(d) for d in stripe_devices)
+        self._group = stripe_devices if ranks else tuple(
+            D.resolve_device(d) for d in stripe_devices)
         if self._group and self._group[0] != self.device:
             raise ValueError(f"the first stripe device {self._group[0]} is "
                              f"not the engine's device {self.device}")
@@ -467,6 +486,23 @@ class SpecTorchEngine(TorchEngine):
             self._dispatch = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="av1torch-dispatch")
         return self._dispatch
+
+    def _on_worker(self, group, fn, *args, **kw):
+        """A future of ``fn(*args, **kw)`` run on the ordered dispatch
+        worker, onto the streams current on this thread, one a device of
+        the engine and of ``group``, so that stream order queues every
+        later reader behind its work (the current stream is per device
+        and per thread)."""
+        streams = [torch.cuda.current_stream(d) for d in
+                   dict.fromkeys((self.device,) + (group or ()))
+                   if d.type == "cuda"]
+
+        def run():
+            with contextlib.ExitStack() as on_streams:
+                for st in streams:
+                    on_streams.enter_context(torch.cuda.stream(st))
+                return fn(*args, **kw)
+        return self._dispatch_pool().submit(run)
 
     def _resolve_refs(self):
         """The reference chain may be a thunk onto an in-flight chunk
@@ -556,10 +592,11 @@ class SpecTorchEngine(TorchEngine):
                 # own tile rows; the strip and the filters run on the
                 # gathered recon, which is cropped back to ph rows
                 stripe_h, ph_s, local_brs = kplan
-                out = stripes.encode_key_striped(
+                out = self._on_worker(
+                    group, stripes.encode_key_striped,
                     group, *_pad_rows((yj, uj, vj), ph_s, edge=True),
                     qindex, bd, th, tw, stripe_h, local_brs,
-                    qround=self._qround, **filters)
+                    qround=self._qround, **filters).result()
                 rows = (ph, ph // 2, ph // 2) * 2 + (ph // 32,) * 9
                 out = tuple(o[:r] for o, r in zip(out, rows)) + out[15:]
             else:
@@ -582,12 +619,13 @@ class SpecTorchEngine(TorchEngine):
             # padded, the references zero-padded (the halo clamp never
             # reads their pad rows); the recon keeps the pad rows
             ph = stripes.stripe_pad(ph, chips)
-            out = stripes.encode_inter_striped(
+            out = self._on_worker(
+                group, stripes.encode_inter_striped,
                 group, *_pad_rows((yj, uj, vj), ph, edge=True),
                 [stripes.shard_rows(group, p)
                  for p in _pad_rows(refs, ph, edge=False)],
                 qindex, bd, th=th, tw=tw, qround=self._qround,
-                gld=self._resolve_golden(ph, group), **filters)
+                gld=self._resolve_golden(ph, group), **filters).result()
         else:
             out = torch_inter.encode_frame(
                 yj, uj, vj, refs[0], refs[1], refs[2], qindex, bd, th=th,
@@ -642,43 +680,35 @@ class SpecTorchEngine(TorchEngine):
                     and base_host is not None and base_dev is not None)
         self._src_base_host = planes[-1]
         dev = self.device
-        # the worker issues onto the streams current here, one a device,
-        # so that stream order queues every later reader behind the
-        # chunk's work (the current stream is per device and per thread)
-        streams = [torch.cuda.current_stream(d) for d in
-                   dict.fromkeys((dev,) + (group or ())) if d.type == "cuda"]
         kw = dict(k=k, ph=ph, pw=pw, bit_depth=bd, th=th, tw=tw, cap=cap,
                   deblock=dbl, qround=self._qround, cdef=self._cdef,
                   lr=self._lr, gld=gld, group=group)
 
         def worker():
-            with contextlib.ExitStack() as on_streams:
-                for st in streams:
-                    on_streams.enter_context(torch.cuda.stream(st))
-                refs = ref_prev() if callable(ref_prev) else ref_prev
-                refs = _pad_rows(refs, ph, edge=False)
-                src = None
-                if use_pack:
-                    bh = _grow(base_host, ph, pw)
-                    pk = (io_pack.pack_chunk(planes, bh, bit_depth=bd)
-                          if bh is not None else None)
-                    bdev = None
-                    if pk is not None:
-                        bdev = base_dev() if callable(base_dev) else base_dev
-                        bdev = _grow(tuple(bdev), ph, pw)
-                    if bdev is not None:
-                        nib, ep, ev, modes = pk
-                        if ev.dtype == np.uint16:
-                            ev = ev.view(np.int16)
-                        src = (to_device(nib, dev), to_device(ep, dev),
-                               to_device(ev, dev), modes, *bdev)
-                if src is None:
-                    src = upload_chunk_raw(planes, dev)
-                return encode_chunk(src, refs, qi, [a for a, _ in lf],
-                                    [b for _, b in lf],
-                                    [d or 4 for d in damps], **kw)
+            refs = ref_prev() if callable(ref_prev) else ref_prev
+            refs = _pad_rows(refs, ph, edge=False)
+            src = None
+            if use_pack:
+                bh = _grow(base_host, ph, pw)
+                pk = (io_pack.pack_chunk(planes, bh, bit_depth=bd)
+                      if bh is not None else None)
+                bdev = None
+                if pk is not None:
+                    bdev = base_dev() if callable(base_dev) else base_dev
+                    bdev = _grow(tuple(bdev), ph, pw)
+                if bdev is not None:
+                    nib, ep, ev, modes = pk
+                    if ev.dtype == np.uint16:
+                        ev = ev.view(np.int16)
+                    src = (to_device(nib, dev), to_device(ep, dev),
+                           to_device(ev, dev), modes, *bdev)
+            if src is None:
+                src = upload_chunk_raw(planes, dev)
+            return encode_chunk(src, refs, qi, [a for a, _ in lf],
+                                [b for _, b in lf],
+                                [d or 4 for d in damps], **kw)
 
-        fut = self._dispatch_pool().submit(worker)
+        fut = self._on_worker(group, worker)
         self._ref_dev = lambda: fut.result()[0]
         self._src_base_dev = lambda: fut.result()[3]
         return (qi, w, h, th, tw, ph, pw, bd, ohs, k, fut, lf, damps,

@@ -2,23 +2,30 @@
 JAX module; stripe_pad, sharding_ok and key_stripe_plan are copies).
 
 The spec bitstream's tile rows are the unit of device parallelism: each
-device of a stripe group (an ordered tuple of ``torch.device``s, one a
-stripe; repeats allowed) encodes one horizontal stripe of the frame, and
+stripe of a stripe group encodes one horizontal stripe of the frame, and
 the host writes every stripe's tiles into one tile group.  The reference
-runs one ``shard_map`` program over a ("stripe",) mesh; here one thread
-issues the stripes in order, each under its own device.
+runs one ``shard_map`` program over a ("stripe",) mesh.  Here a group is
+either the devices of one process (an ordered tuple of ``torch.device``s,
+one a stripe; repeats allowed), whose thread issues the stripes in order,
+each under its own device, or ``Ranks``: one stripe a process of a
+``torch.distributed`` process group, stripe k on rank k's card, every
+rank issuing its own stripe at the same time.  Only the helpers that move
+rows (``shard_rows``, the halo exchange, ``gather_rows``, ``sum_stripes``)
+tell the two apart: copies between devices in one process, collectives
+between ranks.
 
 P-frames: every stripe reads the previous reconstruction through its own
-padded window, built by a halo exchange (``halo_window``: PAD boundary
-rows copied from each vertical neighbour's device, then the spec's
-edge clamp at the true frame dims), so motion vectors stay unrestricted
-across stripe edges within the +-(PAD - 8) search clamp.  Keyframes
-stripe where whole tile rows fall to each device (``key_stripe_plan``):
-tiles share no prediction state.  The 16-px strip, deblocking, CDEF and
-LR filter across stripe edges, so they run on the reconstruction
-gathered to the group's first device, as the one-device encode runs
-them.  The stream is the one-device encode's, byte for byte, while the
-tile plan is (up to 4 devices; ``spec_engine._tile_plan``).
+padded window, built by a halo exchange (``halo_windows``: PAD boundary
+rows from each vertical neighbour, then the spec's edge clamp at the true
+frame dims), so motion vectors stay unrestricted across stripe edges
+within the +-(PAD - 8) search clamp.  Keyframes stripe where whole tile
+rows fall to each stripe (``key_stripe_plan``): tiles share no
+prediction state.  The 16-px strip, deblocking, CDEF and LR filter across
+stripe edges, so they run on the gathered reconstruction, as the
+one-device encode runs them: on the group's first device, or on every
+rank, each of which then holds the whole frame and writes the same
+stream.  The stream is the one-device encode's, byte for byte, while the
+tile plan is (up to 4 stripes; ``spec_engine._tile_plan``).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.distributed as dist
 
 from av1tpu_torch.specav1 import torch_inter, torch_intra
 from av1tpu_torch.specav1.transforms import Quantizer
@@ -83,6 +91,21 @@ def key_stripe_plan(th: int, ph: int, n: int, trl2: int):
     return stripe_h, ph_s, local_brs
 
 
+class Ranks(tuple):
+    """A stripe group that spans the processes of the default
+    ``torch.distributed`` group (``encoder.mesh.distributed``): stripe k
+    on rank k's card.  Seen from one rank it is its own device once a
+    stripe (``len`` is the stripe count, ``[0]`` where gathered outputs
+    land): the rank issues only its own stripe (``local``), keeps only its
+    own rows (``shard_rows``), and receives every other row it reads
+    through collectives."""
+
+    def __new__(cls, device: torch.device, n: int, rank: int):
+        group = super().__new__(cls, (device,) * n)
+        group.rank = rank
+        return group
+
+
 def on_device(dev: torch.device):
     """The context a stripe is issued in: ``dev`` as the current CUDA
     device (its current stream takes the stripe's work); nothing on the
@@ -91,38 +114,87 @@ def on_device(dev: torch.device):
         else contextlib.nullcontext()
 
 
+def local(group) -> list:
+    """(k, device) of each stripe this process issues: every stripe of a
+    one-process group, the rank's own of ``Ranks``."""
+    if isinstance(group, Ranks):
+        return [(group.rank, group[0])]
+    return list(enumerate(group))
+
+
 def shard_rows(group, plane: torch.Tensor) -> list:
-    """Equal row slices of ``plane``, slice k on device group[k]."""
+    """Equal row slices of ``plane``, slice k on device group[k]; under
+    ``Ranks`` only the rank's own slice (None for the others': every rank
+    holds the same whole plane, as every JAX process feeds the same global
+    array)."""
     sh = plane.shape[0] // len(group)
-    return [plane[k * sh:(k + 1) * sh].to(d, non_blocking=True)
-            for k, d in enumerate(group)]
+    parts = [None] * len(group)
+    for k, d in local(group):
+        parts[k] = plane[k * sh:(k + 1) * sh].to(d, non_blocking=True)
+    return parts
 
 
-def gather_rows(parts, dev: torch.device) -> torch.Tensor:
-    """Row slices (one a device) as one tensor on ``dev``."""
-    return torch.cat([p.to(dev, non_blocking=True) for p in parts])
+def _exchange(tensors) -> list:
+    """Every rank's ``tensors`` (the same shapes and dtypes on each), in
+    rank order, by one all-gather of their bytes: NCCL has no int16 or
+    bool, and one collective costs less than one a tensor.  Each tensor's
+    run is padded to 8 bytes, so every view back is aligned."""
+    runs = []
+    for t in tensors:
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        runs.append(torch.cat([b, b.new_zeros(-b.numel() % 8)]))
+    flat = torch.cat(runs)
+    every = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, flat)
+    out = []
+    for got in every:
+        mine, off = [], 0
+        for t, r in zip(tensors, runs):
+            nb = t.numel() * t.element_size()
+            mine.append(got[off:off + nb].view(t.dtype).reshape(t.shape))
+            off += r.numel()
+        out.append(mine)
+    return out
 
 
-def halo_window(parts, k: int, pad: int, th_p: int, tw_p: int, row0: int):
-    """Stripe k's padded window of one reference plane (the reference's
-    _halo_window, a ppermute there).
+def gather_rows(group, outs, fields) -> list:
+    """Fields ``fields`` of every stripe's outputs, each concatenated in
+    stripe order on group[0].  outs: the outputs of the stripes this
+    process issued, in ``local``'s order.  Under ``Ranks`` one all-gather
+    carries every field, and every rank holds the whole frame."""
+    if isinstance(group, Ranks):
+        (mine,) = outs
+        every = _exchange([mine[i] for i in fields])
+        return [torch.cat([e[j] for e in every]) for j in range(len(fields))]
+    dev = group[0]
+    return [torch.cat([o[i].to(dev, non_blocking=True) for o in outs])
+            for i in fields]
 
-    parts: the plane's row slices, one a stripe device (each sh_p rows);
-    row0: stripe k's first row.  The ``pad`` boundary rows of each
-    vertical neighbour are copied to stripe k's device (zeros at the
-    frame-edge stripes, which the clamp below never reads), then rows and
-    columns are remapped so that window cell (i, j) equals the
-    one-device padded reference (``torch_inter.prep_ref``) at
-    (row0 + i, j): row i shows true-ref row clamp(row0 - pad + i, 0,
-    th_p - 1), column j column clamp(j - pad, 0, tw_p - 1).  Returns
-    (sh_p + 2 * pad, pw + 2 * pad) on stripe k's device."""
-    own = parts[k]
+
+def sum_stripes(group, vals) -> torch.Tensor:
+    """The sum of every stripe's ``vals`` (this process's stripes', in
+    ``local``'s order) on group[0]; the reference's ``psum``, an
+    ``all_reduce`` under ``Ranks``."""
+    dev = group[0]
+    total = sum(v.to(dev) for v in vals)
+    if isinstance(group, Ranks):
+        dist.all_reduce(total)
+    return total
+
+
+def _window(own, top, bot, pad: int, th_p: int, tw_p: int, row0: int):
+    """A stripe's rows with ``pad`` neighbour rows above and below (None
+    at the frame's top or bottom: zeros, which the clamp never reads),
+    remapped so that window cell (i, j) equals the one-device padded
+    reference (``torch_inter.prep_ref``) at (row0 + i, j): row i shows
+    true-ref row clamp(row0 - pad + i, 0, th_p - 1), column j column
+    clamp(j - pad, 0, tw_p - 1)."""
     sh_p, pw = own.shape
     dev = own.device
-    top = parts[k - 1][-pad:].to(dev, non_blocking=True) if k > 0 \
-        else own.new_zeros((pad, pw))
-    bot = parts[k + 1][:pad].to(dev, non_blocking=True) \
-        if k + 1 < len(parts) else own.new_zeros((pad, pw))
+    top = own.new_zeros((pad, pw)) if top is None else \
+        top.to(dev, non_blocking=True)
+    bot = own.new_zeros((pad, pw)) if bot is None else \
+        bot.to(dev, non_blocking=True)
     win = torch.cat([top, own, bot])
     g = torch.arange(row0 - pad, row0 + sh_p + pad, device=dev)
     rows = (g.clamp(0, th_p - 1) - (row0 - pad)).clamp(0, sh_p + 2 * pad - 1)
@@ -130,11 +202,38 @@ def halo_window(parts, k: int, pad: int, th_p: int, tw_p: int, row0: int):
     return win[rows[:, None], cols[None, :]]
 
 
-def _windows(parts3, k: int, row0: int, th: int, tw: int):
-    """Stripe k's Y, U and V windows of a reference."""
-    return (halo_window(parts3[0], k, PAD, th, tw, row0),
-            halo_window(parts3[1], k, PAD // 2, th // 2, tw // 2, row0 // 2),
-            halo_window(parts3[2], k, PAD // 2, th // 2, tw // 2, row0 // 2))
+def halo_windows(group, planes, k: int, geoms) -> list:
+    """Stripe k's padded windows of several planes (the reference's
+    _halo_window, a ppermute there), all through one exchange.
+
+    planes: each plane's row slices (``shard_rows``); geoms: each plane's
+    (pad, th_p, tw_p, row0), row0 being stripe k's first row.  The ``pad``
+    boundary rows of each vertical neighbour come to stripe k's device:
+    copied in one process, under ``Ranks`` one all-gather of every
+    stripe's top and bottom rows.  Returns each plane's (sh_p + 2 * pad,
+    pw + 2 * pad) window (``_window``) on stripe k's device."""
+    n = len(group)
+    own = [p[k] for p in planes]
+    if isinstance(group, Ranks):
+        every = _exchange([t for o, (pad, *_) in zip(own, geoms)
+                           for t in (o[:pad], o[-pad:])])
+        nbrs = [(every[k - 1][2 * j + 1] if k > 0 else None,
+                 every[k + 1][2 * j] if k + 1 < n else None)
+                for j in range(len(planes))]
+    else:
+        nbrs = [(p[k - 1][-pad:] if k > 0 else None,
+                 p[k + 1][:pad] if k + 1 < n else None)
+                for p, (pad, *_) in zip(planes, geoms)]
+    return [_window(o, top, bot, *g)
+            for o, (top, bot), g in zip(own, nbrs, geoms)]
+
+
+def _windows(group, planes, k: int, row0: int, th: int, tw: int):
+    """Stripe k's windows of (Y, U, V) plane triples (a reference, or
+    LAST then GOLDEN), through one exchange."""
+    geoms = [(PAD, th, tw, row0), (PAD // 2, th // 2, tw // 2, row0 // 2),
+             (PAD // 2, th // 2, tw // 2, row0 // 2)]
+    return halo_windows(group, planes, k, geoms * (len(planes) // 3))
 
 
 def encode_key_striped(group, y, u, v, qindex: int, bit_depth: int, th: int,
@@ -149,13 +248,14 @@ def encode_key_striped(group, y, u, v, qindex: int, bit_depth: int, th: int,
     wavefront for its tile rows (its top IS a tile start, so 'no above'
     at the stripe top is the tile boundary), clamping edge reads at its
     share of the frame's bottom; the strip and the in-loop filters run on
-    the recon gathered to group[0].  Returns torch_intra.encode_frame's
-    19-tuple at ph_s rows, equal to the one-device keyframe's."""
+    the recon gathered to group[0] (to every rank under ``Ranks``).
+    Returns torch_intra.encode_frame's 19-tuple at ph_s rows, equal to
+    the one-device keyframe's."""
     pw = y.shape[1]
     fh8 = ((th + 7) >> 3) << 3
     parts = [shard_rows(group, p) for p in (y, u, v)]
     outs = []
-    for k, d in enumerate(group):
+    for k, d in local(group):
         row0 = k * stripe_h
         with on_device(d):
             out = torch_intra.encode_frame(
@@ -165,8 +265,8 @@ def encode_key_striped(group, y, u, v, qindex: int, bit_depth: int, th: int,
                 fh_clamp=min(max(fh8 - row0, 0), stripe_h))
         outs.append(out[0:15])
     dev = group[0]
-    fy, fu, fv, lv_y, lv_u, lv_v, *grids = (
-        gather_rows([o[i] for o in outs], dev) for i in range(15))
+    fy, fu, fv, lv_y, lv_u, lv_v, *grids = gather_rows(group, outs,
+                                                       range(15))
     strip = th % 32 == 16
     # rows past the coded grid are stripe-pad garbage the one-device
     # encode never writes; zero their levels so that the sparse level pack
@@ -209,26 +309,28 @@ def encode_inter_striped(group, y, u, v, refs, qindex: int, bit_depth: int,
     32 * len(group); refs: the LAST reconstruction as row slices, one a
     stripe device (``shard_rows`` of each plane), gld the GOLDEN one
     likewise or None.  Stripe k encodes rows [k * sh, (k + 1) * sh) on
-    group[k] through windows from ``halo_window``; the outputs are
-    gathered to group[0], where the strip and the in-loop filters run on
-    the whole frame.  Returns torch_inter.encode_frame's 16-tuple,
-    equal to the one-device encode's."""
+    group[k] through windows from ``halo_windows``; the outputs are
+    gathered to group[0] (to every rank under ``Ranks``), where the strip
+    and the in-loop filters run on the whole frame.  Returns
+    torch_inter.encode_frame's 16-tuple, equal to the one-device
+    encode's."""
     sh = y.shape[0] // len(group)
     src = [shard_rows(group, p) for p in (y, u, v)]
     outs = []
-    for k, d in enumerate(group):
+    for k, d in local(group):
         row0 = k * sh
         with on_device(d):
-            ref_w = _windows(refs, k, row0, th, tw)
-            gld_w = None if gld is None else _windows(gld, k, row0, th, tw)
+            wins = _windows(group, list(refs) + list(gld or ()), k, row0,
+                            th, tw)
+            ref_w, gld_w = wins[:3], wins[3:] or None
             outs.append(torch_inter.encode_frame(
                 src[0][k], src[1][k], src[2][k], *ref_w, qindex, bit_depth,
                 th=th, tw=tw, qround=qround, gld=gld_w, stripe=True,
                 row0=row0))
     dev = group[0]
     out = [None] * 16
-    for i in _INTER_ROWS:
-        out[i] = gather_rows([o[i] for o in outs], dev)
+    for i, t in zip(_INTER_ROWS, gather_rows(group, outs, _INTER_ROWS)):
+        out[i] = t
     gh, gw = y.shape[0] // 32, y.shape[1] // 32
     q = Quantizer(qindex, bit_depth, qround, dev)
     out[5], out[6], out[7], out[8], out[9], out[10], out[15] = \

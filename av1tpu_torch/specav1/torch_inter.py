@@ -330,7 +330,7 @@ def encode_frame(y, u, v, ref_y, ref_u, ref_v, qindex: int,
     (``finish_frame`` on the gathered frame), and strip_skip, cdefs and
     the LR outputs come back off.  The reference planes (and ``gld``) are
     then prebuilt padded windows covering padded-frame rows
-    [row0 - PAD, row0 + stripe height + PAD) (``stripes.halo_window``),
+    [row0 - PAD, row0 + stripe height + PAD) (``stripes.halo_windows``),
     and block positions stay stripe-local."""
     dev = y.device
     H, Wd = y.shape

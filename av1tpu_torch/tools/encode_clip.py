@@ -12,7 +12,7 @@ private av1tpu profile) on the card, or on the CPU with ``--cpu``;
 without it and without a card the tool fails.  Each IVF frame is a
 temporal delimiter OBU, the sequence header OBU on frame 0, and the
 frame's payload; ``--verify`` decodes the file with the port's legacy
-decoder and reports the Y-PSNR.
+decoder on the device it encoded on and reports the Y-PSNR.
 """
 
 from __future__ import annotations
@@ -89,7 +89,7 @@ def main(argv=None) -> int:
 
     if args.verify:
         from av1tpu_torch.legacy import decoder
-        out = decoder.decode_ivf(args.out)
+        out = decoder.decode_ivf(args.out, device=engine.device)
         psnrs = []
         for src, dec in zip(frames, out):
             err = src.y.astype(np.float64) - dec.y.astype(np.float64)

@@ -1,16 +1,18 @@
-# Copied from av1tpu/tools/quality.py; imports rewired to av1tpu_torch.
+# Copied from av1tpu/tools/quality.py; imports rewired to av1tpu_torch, and
+# --cpu as the port's other tools take it.
 """Quality measurement: PSNR + SSIM between a reference and an encoding.
 
 The VMAF-parity measurement surface (BASELINE.md: equal-VMAF target;
 libvmaf is unavailable in this environment, so PSNR/SSIM are the recorded
 fidelity metrics).  Decodes the private av1tpu profile's IVF and
-Matroska streams with the port's legacy decoder on the CPU (the av1C
-config OBUs first, for Matroska) and anything else through
-``TorchEngine.iter_source_frames`` (y4m, libavcodec, cv2).  Nothing here
-touches the card.
+Matroska streams with the port's legacy decoder (the av1C config OBUs
+first, for Matroska) on the card, or on the CPU with ``--cpu`` (without
+it and without a card such a stream raises), and anything else
+through ``TorchEngine.iter_source_frames`` (y4m, libavcodec, cv2).
 
 Usage:
-  python -m av1tpu_torch.tools.quality --ref src.mp4 --dist out.mkv [--frames N]
+  python -m av1tpu_torch.tools.quality --ref src.mp4 --dist out.mkv \
+      [--frames N] [--cpu]
 Prints one JSON line: {"frames", "y_psnr", "y_ssim", "per_frame": [...]}.
 """
 
@@ -48,9 +50,9 @@ def ssim(a: np.ndarray, b: np.ndarray, maxval: float = 255.0) -> float:
     return float(s.mean())
 
 
-def _iter_frames(path: str):
-    """Yield luma planes; av1tpu MKV/IVF via our decoder, else the
-    engine's source decoders."""
+def _iter_frames(path: str, device: str = "cuda"):
+    """Yield luma planes; av1tpu MKV/IVF via our decoder on ``device``,
+    else the engine's source decoders."""
     from av1tpu_torch.media.probe import probe_file, ProbeError
     try:
         pr = probe_file(path)
@@ -61,13 +63,13 @@ def _iter_frames(path: str):
         from av1tpu_torch.legacy import decoder as dec_mod
         from av1tpu_torch.media import mkv
         if path.lower().endswith(".ivf"):
-            for fr in dec_mod.decode_ivf(path):
+            for fr in dec_mod.decode_ivf(path, device=device):
                 yield fr.y
             return
         with open(path, "rb") as f:
             m = mkv.parse(f)
             v = [t for t in m.tracks if t.codec_id == "V_AV1"][0]
-            state = dec_mod.DecoderState()
+            state = dec_mod.DecoderState(device=device)
             dec_mod.decode_frame_payload(v.codec_private[4:], state)
             for pkt in mkv.iter_packets(f, m):
                 if pkt.track_number == v.number:
@@ -86,11 +88,14 @@ def main(argv=None) -> int:
     p.add_argument("--dist", required=True)
     p.add_argument("--frames", type=int, default=0)
     p.add_argument("--maxval", type=float, default=255.0)
+    p.add_argument("--cpu", action="store_true",
+                   help="decode on the CPU (default: the CUDA card)")
     args = p.parse_args(argv)
 
+    device = "cpu" if args.cpu else "cuda"
     per_frame = []
-    for i, (ry, dy) in enumerate(zip(_iter_frames(args.ref),
-                                     _iter_frames(args.dist))):
+    for i, (ry, dy) in enumerate(zip(_iter_frames(args.ref, device),
+                                     _iter_frames(args.dist, device))):
         if args.frames and i >= args.frames:
             break
         if ry.shape != dy.shape:

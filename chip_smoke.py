@@ -1,6 +1,6 @@
 """GPU smoke test of the PyTorch port (``av1tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --dist]
 
 Phases (any failure exits non-zero; nothing is caught):
   1. device   require CUDA; print the card's name and power limit
@@ -98,10 +98,11 @@ Phases (any failure exits non-zero; nothing is caught):
               upload bytes packed against raw, submit-to-result and
               finalize ms, per run fps and peak device memory, and the
               first chunk's upload ms raw and packed
-  7. stripes the multi-device stripe encode with every stripe on this card
-              (stripe devices ("cuda:0",) * n; halo copies between cards
-              are not exercised on one), with the launch counts set to 0
-              before each and read after:
+  7. stripes the multi-device stripe encode issued from this one thread,
+              stripe k on card k mod the visible cards (with one card,
+              stripe devices ("cuda:0",) * n: halo copies between cards
+              are not exercised), with the launch counts set to 0 before
+              each and read after:
               stripes-1080p-chunk8 slice-1080p-chunk8's frames in
                                   TpuEncoderConfig() over 2 stripes: a
                                   striped keyframe and one chunk of 8
@@ -145,7 +146,28 @@ Phases (any failure exits non-zero; nothing is caught):
                              (v1), K1 2n and K2 2n (v2)
               and at 512x64 over 8 stripes the card's outputs equal the
               CPU's; across two cards where the machine has them
- 10. conform  256x144 streams (16-px strip) decoded by the port's own spec
+ 10. dist     stripes over processes: rank processes of this script
+              (--dist-rank) with AV1TPU_COORDINATOR on 127.0.0.1 at a
+              free port, AV1TPU_NUM_PROCESSES and AV1TPU_PROCESS_ID, each
+              joining the process group through the port's init function
+              and encoding through the daemon's make_engine with
+              num_chips 0 (one stripe a rank), with the launch counts set
+              to 0 before and read after in each rank:
+              dist-1080p-chunk8  slice-1080p-chunk8's frames in
+                                 TpuEncoderConfig() over 2 ranks
+              dist-720p-default  slice-720p-default's clip over 4 ranks
+                                 (only with four cards)
+              with two or more cards over NCCL, one card a rank; with one
+              card two ranks share it over gloo (NCCL refuses two ranks on
+              one card), which the run says on its own line; every rank's
+              payloads and recon over the coded frame must equal the
+              one-device cell's, every frame striped over the ranks, K1
+              3 + 5 and K2 3 launches a P-frame in each rank (one
+              stripe's share); a rank that fails fails the phase; each
+              rank's key and P ms, fps and collective time (CUDA events
+              and host clock around each exchange), beside the one-device
+              and one-thread stripe cells'
+ 11. conform  256x144 streams (16-px strip) decoded by the port's own spec
               decoder must equal the port's reconstruction, and the CPU run
               of the port must give the same bytes: a grainy golden-off
               1 key + 3 P, a clean golden key A, inter B, inter A with
@@ -157,6 +179,12 @@ Phases (any failure exits non-zero; nothing is caught):
               recon and equal its CPU run and the one-device stream; and a
               320x192 private-profile key + 3 P at chunk=3, decoded by the
               port's legacy decoder, card bytes = CPU bytes
+
+With --dist only the build, the two one-device cells the dist phase
+compares with (slice-1080p-chunk8, slice-720p-default), the stripe cells
+and the dist phase run: the processes path and what it is compared with,
+on a machine with several cards, in a fraction of the smoke's time; no
+kernels line is printed.
 
 With --profile, one more P-frame of each golden path runs after the
 slices, timed with each in-loop filter stage (deblocking, CDEF, LR)
@@ -314,6 +342,21 @@ def grainy_frame(w: int, h: int, i: int, rng):
     y = np.clip(f.y.astype(np.int32) + rng.integers(-6, 7, f.y.shape),
                 0, 255).astype(np.uint8)
     return Frame(y=y, u=f.u, v=f.v)
+
+
+def grain_clip():
+    """slice-1080p-chunk8's clip: 9 grainy 1920x1080 frames, seeded."""
+    import numpy as np
+    W, H, _ = SIZES["1080p"]
+    rng = np.random.default_rng(7)
+    return [grainy_frame(W, H, i, rng) for i in range(9)]
+
+
+def clean_clip_720p():
+    """slice-720p-default's clip: 4 clean 1280x720 frames of scene A."""
+    from av1tpu_torch.utils.cleansrc import clean_frame
+    W, H, _ = SIZES["720p"]
+    return [clean_frame(W, H, i, 0) for i in range(4)]
 
 
 def phase_build():
@@ -1018,16 +1061,13 @@ def phase_slices(dev_name: str, daemon_payloads):
     with (``phase_stripes``).  ``daemon_payloads``, the daemon-1080p
     pass's video payloads, must equal slice-1080p-chunk8's: the same
     frames at the same qindex in the same config."""
-    import numpy as np
-
     from av1tpu_torch.spec_engine import noise_floor
     from av1tpu_torch.utils.cleansrc import clean_frame
     W, H, _ = SIZES["1080p"]
     counts, runs, refs = {}, {}, {}
 
     # one reference, grainy: the earlier slice at a smaller depth
-    rng = np.random.default_rng(7)
-    grain9 = [grainy_frame(W, H, i, rng) for i in range(9)]
+    grain9 = grain_clip()
     frames = grain9[:4]
     if not noise_floor(frames[0].y) > 1.0:
         fail("grainy clip's noise floor is not above 1")
@@ -1099,7 +1139,7 @@ def phase_slices(dev_name: str, daemon_payloads):
 
     # clean 720p: 720 % 32 == 16 and 1280 % 16 == 0, so the GOP filters
     W, H, _ = SIZES["720p"]
-    frames = [clean_frame(W, H, i, 0) for i in range(4)]
+    frames = clean_clip_720p()
     if noise_floor(frames[0].y) > 1.0:
         fail("clean 720p clip's noise floor is above 1")
     r = run_slice("slice-720p-clean", frames, True, dev_name)
@@ -1133,11 +1173,7 @@ def phase_slices(dev_name: str, daemon_payloads):
     decode_check("slice-720p-default", r)
     counts["slice-720p-default"] = r["launches"]
     runs["slice-720p-default"] = r
-    rows = r["eng"].rows
-    refs["slice-720p-default"] = {
-        "name": "slice-720p-default", "frames": frames,
-        "payloads": [p for p, _ in r["out"]], "recons": [x[3] for x in rows],
-        "key_ms": rows[0][1], "p_ms": np.mean([x[1] for x in rows[1:]])}
+    refs["slice-720p-default"] = slice_ref("slice-720p-default", r, frames)
 
     # the default config exactly on the clean 720p drift: 1 key + 16 P,
     # two full chunks of 8, both through the packed upload
@@ -1149,25 +1185,40 @@ def phase_slices(dev_name: str, daemon_payloads):
     return counts, runs, refs
 
 
-def phase_stripes(dev_name: str, card: str, refs: dict) -> dict:
+def slice_ref(name: str, r: dict, frames) -> dict:
+    """What the stripe and dist cells compare with, from a run_slice
+    run: its frames, payloads, recons (int16 on the card), key and mean
+    P ms."""
+    import numpy as np
+    rows = r["eng"].rows
+    return {"name": name, "frames": frames,
+            "payloads": [p for p, _ in r["out"]],
+            "recons": [x[3] for x in rows], "key_ms": rows[0][1],
+            "p_ms": np.mean([x[1] for x in rows[1:]])}
+
+
+def phase_stripes(card: str, refs: dict) -> tuple:
     """The stripe cells: the daemon's default job on a multi-card host,
-    its stripes all on this one card.  stripes-1080p-chunk8 runs
+    its stripes issued from one thread (all on one card where the machine
+    has one).  stripes-1080p-chunk8 runs
     slice-1080p-chunk8's 9 grainy frames in TpuEncoderConfig() over 2
     stripes (a striped keyframe, two tile rows a stripe, and one raw chunk
     of 8 striped P-frames); stripes-720p-default slice-720p-default's
     clean 1 key + 3 P in TpuEncoderConfig(chunk=1) over 4 stripes (the
     strip, deblocking, CDEF and LR on the gathered recon; the middle
-    stripes read halos from both sides).  Returns their launch counts."""
+    stripes read halos from both sides).  Returns their launch counts, and
+    each cell's run by the name of the one-device cell it equals."""
     from av1tpu_torch.config import TpuEncoderConfig
-    counts = {}
+    counts, runs = {}, {}
     for name, cfg, n, ref in (
             ("stripes-1080p-chunk8", TpuEncoderConfig(), 2,
              refs["slice-1080p-chunk8"]),
             ("stripes-720p-default", TpuEncoderConfig(chunk=1), 4,
              refs["slice-720p-default"])):
-        counts[name] = run_stripe_cell(name, ref["frames"], cfg, n, dev_name,
-                                       card, ref)["launches"]
-    return counts
+        r = run_stripe_cell(name, ref["frames"], cfg, n, card, ref)
+        counts[name] = r["launches"]
+        runs[ref["name"]] = {**r, "name": name, "n": n}
+    return counts, runs
 
 
 def run_legacy(name: str, frames, cfg, dev_name: str, Q: int = 96) -> dict:
@@ -1298,12 +1349,9 @@ def phase_legacy(dev_name: str) -> dict:
     twice a P-frame for each reference searched.  Each stream decodes to
     its recon in the port's legacy decoder on the CPU (decode workers).
     Returns the launch counts by path."""
-    import numpy as np
-
     from av1tpu_torch.config import TpuEncoderConfig
     W, H, _ = SIZES["1080p"]
-    rng = np.random.default_rng(7)
-    grain9 = [grainy_frame(W, H, i, rng) for i in range(9)]
+    grain9 = grain_clip()
     t0 = time.perf_counter()
     counts = {}
     r = run_legacy("legacy-1080p-chunk", grain9,
@@ -1606,54 +1654,67 @@ def run_chunk_cell(name: str, frames, dev_name: str, packed: bool,
             "p_ms": np.mean(c8["eng"].res_ms) / k}
 
 
-def run_stripe_cell(name: str, frames, cfg, n: int, dev_name: str, card: str,
-                    ref: dict, Q: int = 96) -> dict:
-    """One stream through encode_stream with n stripes all on the card
-    (stripe devices (dev_name,) * n: the striped arithmetic, halo windows
-    and gathers, with every copy between stripes on one card), with the
+def time_dispatches(eng):
+    """Times ``eng``'s dispatches into eng.key_ms and eng.p_ms: keys and
+    single P-frames as their submit bracketed by synchronizes, a chunk's
+    P-frames as its submit-to-result ms over its length (wrapping the
+    instance's methods, so that an engine from the daemon's make_engine
+    can be timed too)."""
+    import torch
+    eng.key_ms, eng.p_ms = [], []
+    sub_t = []
+    submit, submit_chunk = eng._submit, eng._submit_chunk
+    finalize_chunk = eng._finalize_chunk
+
+    def _submit(frame, qindex, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pend = submit(frame, qindex, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        (eng.key_ms if pend[0] == "key" else eng.p_ms).append(ms)
+        return pend
+
+    def _submit_chunk(frames, qindexes):
+        sub_t.append(time.perf_counter())
+        return submit_chunk(frames, qindexes)
+
+    def _finalize_chunk(pending):
+        t0 = sub_t.pop(0)
+        pending[10].result()
+        torch.cuda.synchronize()
+        k = pending[9]
+        eng.p_ms += [(time.perf_counter() - t0) * 1e3 / k] * k
+        return finalize_chunk(pending)
+
+    eng._submit, eng._submit_chunk = _submit, _submit_chunk
+    eng._finalize_chunk = _finalize_chunk
+    return eng
+
+
+def run_stripe_cell(name: str, frames, cfg, n: int, card: str, ref: dict,
+                    Q: int = 96) -> dict:
+    """One stream through encode_stream with n stripes issued from this
+    one thread, stripe k on card k mod the visible cards (all on one card
+    where the machine has one: the striped arithmetic, halo windows and
+    gathers, with every copy between stripes on that card), with the
     launch counts set to 0 just before and read just after.  Its payloads
     and its recon over the coded frame must equal ``ref``'s, the same
     frames' one-device cell; K1 must launch n x (3 + 5) and K2 n x 3
-    times a P-frame.  Prints key and P ms beside the one-device cell's:
-    keys and single P-frames bracketed by synchronizes, a chunk's P-frames
-    as its submit-to-result ms over its length."""
+    times a P-frame.  Prints key and P ms beside the one-device cell's
+    (``time_dispatches``) and returns them with the launch counts."""
     import numpy as np
     import torch
 
     from av1tpu_torch.spec_engine import SpecTorchEngine
     from av1tpu_torch.specav1 import stripes
 
-    class Timed(SpecTorchEngine):
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            self.key_ms, self.p_ms, self.sub_t = [], [], []
-            self.chunks_done = 0
-
-        def _submit(self, frame, qindex, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            pend = super()._submit(frame, qindex, **kw)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t) * 1e3
-            (self.key_ms if pend[0] == "key" else self.p_ms).append(ms)
-            return pend
-
-        def _submit_chunk(self, frames, qindexes):
-            self.sub_t.append(time.perf_counter())
-            return super()._submit_chunk(frames, qindexes)
-
-        def _finalize_chunk(self, pending):
-            t0 = self.sub_t[self.chunks_done]
-            self.chunks_done += 1
-            pending[10].result()
-            torch.cuda.synchronize()
-            k = pending[9]
-            self.p_ms += [(time.perf_counter() - t0) * 1e3 / k] * k
-            return super()._finalize_chunk(pending)
-
     N = len(frames)
     H, W = frames[0].height, frames[0].width
-    eng = Timed(cfg, device=dev_name, stripe_devices=(dev_name,) * n)
+    cards = torch.cuda.device_count()
+    group = tuple(f"cuda:{k % cards}" for k in range(n))
+    eng = time_dispatches(SpecTorchEngine(cfg, device=group[0],
+                                          stripe_devices=group))
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
@@ -1687,11 +1748,12 @@ def run_stripe_cell(name: str, frames, cfg, n: int, dev_name: str, card: str,
         fail(f"{name}: K2 launches {launches['refine_ssd']} over {n_p} "
              f"P-frames, expected {3 * n} a frame")
     sh = stripes.stripe_pad(-(-H // 64) * 64, n) // n
-    log(f"{name}: {n} stripes of {sh} rows on {dev_name} "
-        f"x {n}, {N} frames (1 key + {n_p} P): payloads and recon over the "
-        f"coded frame equal {ref['name']}'s, byte for byte; every frame "
-        f"striped ({recons.striped}); cross-card halo copies: not exercised "
-        "(one card)")
+    across = (f"halo copies across {min(cards, n)} cards" if cards > 1
+              else "cross-card halo copies: not exercised (one card)")
+    log(f"{name}: {n} stripes of {sh} rows from one thread on {group}, {N} "
+        f"frames (1 key + {n_p} P): payloads and recon over the coded frame "
+        f"equal {ref['name']}'s, byte for byte; every frame striped "
+        f"({recons.striped}); {across}")
     log(f"{name}: key {np.mean(eng.key_ms):.1f} ms, P {np.mean(eng.p_ms):.1f} "
         f"ms a frame (one device, {ref['name']}: key {ref['key_ms']:.1f} ms, P "
         f"{ref['p_ms']:.1f} ms), {N} frames in {wall:.3f} s = "
@@ -1699,7 +1761,8 @@ def run_stripe_cell(name: str, frames, cfg, n: int, dev_name: str, card: str,
     log(f"{name}: launches {launches}, per P-frame "
         f"{ {k: round(v / n_p, 2) for k, v in launches.items()} } (expected "
         f"{n} x (3 + 5) K1, {n} x 3 K2)")
-    return {"launches": launches}
+    return {"launches": launches, "key_ms": np.mean(eng.key_ms),
+            "p_ms": np.mean(eng.p_ms), "devices": group}
 
 
 def _device_events(prof):
@@ -2123,6 +2186,262 @@ def phase_mesh(dev_name: str, card: str) -> dict:
     return counts
 
 
+# the dist phase's cells: the one-device cell each must equal, its
+# config (TpuEncoderConfig's keywords), its clip, its rank count
+DIST_CELLS = {
+    "dist-1080p-chunk8": ("slice-1080p-chunk8", {}, grain_clip, 2),
+    "dist-720p-default": ("slice-720p-default", {"chunk": 1},
+                          clean_clip_720p, 4)}
+# a dist cell's ranks must end within this long (they are killed after)
+DIST_LIMIT_S = 300
+
+
+def recon_digests(recons, h: int, w: int) -> list:
+    """SHA-256 of each recon plane over the coded frame (int16 bytes)."""
+    import hashlib
+    return [[hashlib.sha256(p[:hh, :ww].contiguous().cpu().numpy()
+                            .tobytes()).hexdigest()
+             for p, (hh, ww) in zip(fr, ((h, w), (h // 2, w // 2),
+                                         (h // 2, w // 2)))]
+            for fr in recons]
+
+
+def dist_rank(name: str, backend: str, work: str) -> int:
+    """One rank of a dist cell, in a process of its own (``chip_smoke.py
+    --dist-rank NAME BACKEND DIR`` with the AV1TPU_* variables set): the
+    process group joined through the port's init function with
+    ``backend`` given explicitly, the daemon's engine from make_engine on
+    this rank's card with its self-test (a 320x192 key, which does not
+    stripe: the warm-up every daemon rank makes), then, from a fresh
+    stream as the daemon starts each file, the cell's clip
+    through encode_stream with the launch counts set to 0 just before
+    and read just after, each dispatch timed (``time_dispatches``) and
+    each collective of the stripe transport bracketed by CUDA events on
+    the rank's stream and by the host clock.  Writes what it saw to
+    DIR/rank<r>.pkl."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from av1tpu_torch.config import TpuEncoderConfig, TranscodeConfig
+    from av1tpu_torch.daemon import engine as engine_mod
+    from av1tpu_torch.encoder.mesh import distributed
+    from av1tpu_torch.specav1 import stripes
+    t_start = time.perf_counter()
+    distributed.maybe_initialize("cuda", backend=backend)
+    _, cfg, clip, _ = DIST_CELLS[name]
+    frames = clip()
+    eng = engine_mod.make_engine(TranscodeConfig(
+        tpu=TpuEncoderConfig(**cfg)))
+    engine_mod.verify_engine(eng, "320x192")
+    eng.start_stream()  # as the daemon's transcode starts each file
+    time_dispatches(eng)
+    real_exchange = stripes._exchange
+    coll = {"events": [], "host_ms": 0.0, "bytes": 0}
+
+    def timed_exchange(tensors):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        t = time.perf_counter()
+        ev[0].record()
+        out = real_exchange(tensors)
+        ev[1].record()
+        coll["host_ms"] += (time.perf_counter() - t) * 1e3
+        coll["events"].append(ev)
+        coll["bytes"] += sum(x.numel() * x.element_size() for x in tensors)
+        return out
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    stripes._exchange = timed_exchange
+    torch.cuda.synchronize()
+    ready = time.perf_counter() - t_start
+    try:
+        with capture_recons() as recons:
+            t0 = time.perf_counter()
+            out = list(eng.encode_stream(frames, 96))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        stripes._exchange = real_exchange
+    res = {"rank": distributed.rank(), "world": distributed.world_size(),
+           "backend": dist.get_backend(), "device": str(eng.device),
+           "stripes": len(eng._group), "payloads": [p for p, _ in out],
+           "striped": dict(recons.striped),
+           "digests": recon_digests(recons, frames[0].height,
+                                    frames[0].width),
+           "launches": {k: fn.launches for k, fn in counters.items()},
+           "key_ms": float(np.mean(eng.key_ms)),
+           "p_ms": float(np.mean(eng.p_ms)), "wall": wall, "ready": ready,
+           "coll_ms": [a.elapsed_time(b) for a, b in coll["events"]],
+           "coll_host_ms": coll["host_ms"], "coll_bytes": coll["bytes"]}
+    path = os.path.join(work, f"rank{res['rank']}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_dist_cell(name: str, n: int, backend: str, card: str, refs: dict,
+                  threads: dict) -> dict:
+    """n rank processes of ``name`` (``dist_rank``) on 127.0.0.1 at a free
+    port, each with AV1TPU_COORDINATOR, AV1TPU_NUM_PROCESSES and
+    AV1TPU_PROCESS_ID set as a user sets them for the daemon's ranks.
+    The first rank to fail fails the phase (the others are killed), as
+    does a run past DIST_LIMIT_S.  Every rank's payloads must equal the
+    one-device cell's, its recons over the coded frame too (by digest),
+    every frame striped over the n ranks, and its K1 / K2 launches must
+    be one stripe's share: 3 + 5 and 3 a P-frame.  Prints each rank's key
+    and P ms and fps, beside the one-device cell's and the one-thread
+    stripe cell's (``phase_stripes``), and its collectives' time.
+    Returns rank 0's launch counts."""
+    import pickle
+    import socket
+    import tempfile
+
+    import torch
+    ref_name, _, _, _ = DIST_CELLS[name]
+    ref = refs[ref_name]
+    frames = ref["frames"]
+    H, W = frames[0].height, frames[0].width
+    n_p = len(frames) - 1
+    want = recon_digests(ref["recons"], H, W)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="av1torch-dist-")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, AV1TPU_COORDINATOR=f"127.0.0.1:{port}",
+               AV1TPU_NUM_PROCESSES=str(n))
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w+") for r in range(n)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-rank", name,
+         backend, work], cwd=HERE, env=dict(env, AV1TPU_PROCESS_ID=str(r)),
+        stdout=fh, stderr=subprocess.STDOUT) for r, fh in enumerate(logs)]
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll()]
+            late = time.perf_counter() - t0 > DIST_LIMIT_S
+            if bad or late:
+                r = bad[0] if bad else 0
+                logs[r].seek(0)
+                fail(f"{name}: rank {r} of {n} "
+                     + (f"exited with {procs[r].returncode}" if bad else
+                        f"still running after {DIST_LIMIT_S} s")
+                     + ":\n" + logs[r].read()[-6000:])
+            time.sleep(0.1)
+        phase_s = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode:
+                logs[r].seek(0)
+                fail(f"{name}: rank {r} exited with {p.returncode}:\n"
+                     + logs[r].read()[-6000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fh in logs:
+            fh.close()
+    res = []
+    for r in range(n):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    shutil.rmtree(work)
+    one = threads.get(ref_name)
+    for x in res:
+        r = x["rank"]
+        if (x["world"], x["backend"], x["stripes"]) != (n, backend, n):
+            fail(f"{name}: rank {r}: world {x['world']}, backend "
+                 f"{x['backend']}, {x['stripes']} stripes")
+        if x["payloads"] != ref["payloads"]:
+            bad = [i for i, (a, b) in enumerate(zip(x["payloads"],
+                                                    ref["payloads"]))
+                   if a != b]
+            fail(f"{name}: rank {r}'s payloads differ from {ref_name}'s at "
+                 f"frames {bad} of {len(frames)}")
+        if x["digests"] != want:
+            fail(f"{name}: rank {r}'s recons differ from {ref_name}'s")
+        if x["striped"] != {"key": 1, "inter": n_p}:
+            fail(f"{name}: rank {r} striped {x['striped']} of "
+                 f"{len(frames)} frames")
+        need_k1_launches(f"{name} rank {r}", x["launches"], n_p, 3, 5)
+        if x["launches"]["refine_ssd"] != 3 * n_p:
+            fail(f"{name}: rank {r}: K2 launches "
+                 f"{x['launches']['refine_ssd']} over {n_p} P-frames, "
+                 "expected one stripe's 3 a frame")
+    devices = [x["device"] for x in res]
+    if backend == "nccl" and len(set(devices)) != n:
+        fail(f"{name}: ranks on {devices}: NCCL needs one card a rank")
+    log(f"{name}: {n} ranks ({backend}) on {devices}, {len(frames)} frames "
+        f"(1 key + {n_p} P): every rank's payloads and recon over the coded "
+        f"frame equal {ref_name}'s, byte for byte; every frame striped over "
+        f"the ranks; K1 3 + 5 and K2 3 launches a P-frame on each rank (one "
+        f"stripe's share); {phase_s:.1f} s from the first rank's start to "
+        "the last rank's end")
+    for x in res:
+        # the key's gather is the first collective (the communicator is
+        # set up in it); each P-frame then makes two, its halos and its
+        # outputs' gather
+        first, rest = x["coll_ms"][0], x["coll_ms"][1:]
+        log(f"{name}: rank {x['rank']} on {x['device']}: key "
+            f"{x['key_ms']:.1f} ms, P {x['p_ms']:.1f} ms a frame, "
+            f"{len(frames)} frames in {x['wall']:.3f} s = "
+            f"{len(frames) / x['wall']:.4f} fps (engine ready "
+            f"{x['ready']:.1f} s after the rank's start); collectives "
+            f"(CUDA events around each on the rank's stream: transfer and "
+            f"waiting for the other ranks): {len(x['coll_ms'])} exchanges of "
+            f"{x['coll_bytes'] / 2 ** 20:.1f} MiB, {sum(x['coll_ms']):.1f} ms "
+            f"({x['coll_host_ms']:.1f} ms on the host): the key's gather "
+            f"{first:.1f} ms, the P-frames' {len(rest)} {sum(rest):.1f} ms = "
+            f"{sum(rest) / n_p:.2f} ms a P-frame (max {max(rest):.2f} ms "
+            f"an exchange), {sum(rest) / n_p / x['p_ms']:.1%} of its P ms "
+            f"| {card}")
+    log(f"{name}: one device ({ref_name}): key {ref['key_ms']:.1f} ms, P "
+        f"{ref['p_ms']:.1f} ms a frame"
+        + (f"; {one['n']} stripes from one thread on {one['devices']} "
+           f"({one['name']}): key {one['key_ms']:.1f} ms, P "
+           f"{one['p_ms']:.1f} ms a frame" if one else "")
+        + f" | {card}")
+    return res[0]["launches"]
+
+
+def phase_dist(card: str, refs: dict, threads: dict) -> dict:
+    """Stripes over processes: the AV1TPU_* process group, one stripe a
+    rank (``run_dist_cell``).  With two or more cards, NCCL, one card a
+    rank: dist-1080p-chunk8 (slice-1080p-chunk8's frames in
+    TpuEncoderConfig(), num_chips 0 = every rank) over 2 ranks and, with
+    four cards, dist-720p-default (slice-720p-default's clip) over 4.
+    With one card NCCL cannot hold two ranks on it, so two ranks share it
+    over gloo, which carries the card tensors through the host.  Returns
+    the cells' launch counts."""
+    import torch
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    cells = [("dist-1080p-chunk8", 2)]
+    if cards >= 4:
+        cells.append(("dist-720p-default", 4))
+    print(f"dist backend: {backend}, ranks "
+          f"{' and '.join(str(n) for _, n in cells)}, {cards} card(s)",
+          flush=True)
+    if backend == "gloo":
+        log("dist: one card: two ranks share it over gloo (NCCL refuses two "
+            "ranks on one card); collectives between cards over NCCL, and "
+            "dist-720p-default over 4 ranks, need more cards and are not "
+            "run here")
+    elif cards < 4:
+        log(f"dist: {cards} cards: dist-720p-default over 4 ranks needs 4 "
+            "cards and is not run here")
+    return {name: run_dist_cell(name, n, backend, card, refs, threads)
+            for name, n in cells}
+
+
 def source_decoders() -> str:
     """Which source decoders this machine has: the system's libavcodec
     (``ldconfig -p``), the port's native decoder built on it, and cv2."""
@@ -2159,7 +2478,6 @@ def phase_daemon(card: str) -> dict:
     import logging
     import tempfile
 
-    import numpy as np
     import torch
 
     from av1tpu_torch import config, jobs
@@ -2170,8 +2488,7 @@ def phase_daemon(card: str) -> dict:
     from av1tpu_torch.media import mkv, y4m
     name = "daemon-1080p"
     W, H, _ = SIZES["1080p"]
-    rng = np.random.default_rng(7)
-    frames = [grainy_frame(W, H, i, rng) for i in range(9)]
+    frames = grain_clip()
     root = tempfile.mkdtemp(prefix="av1torch-daemon-")
     lib = os.path.join(root, "library")
     os.makedirs(lib)
@@ -2363,7 +2680,7 @@ def _clip_job(ivf_path: str, recons, y4m_path: str, want_psnr: float):
     from av1tpu_torch.legacy import decoder
     from av1tpu_torch.tools import quality
     t = time.perf_counter()
-    frames = decoder.decode_ivf(ivf_path)
+    frames = decoder.decode_ivf(ivf_path, device="cpu")
     err = None if len(frames) == len(recons) else \
         f"legacy decoder gave {len(frames)} frames for {len(recons)}"
     for i, (fr, rec) in enumerate(zip(frames, recons)):
@@ -2373,7 +2690,7 @@ def _clip_job(ivf_path: str, recons, y4m_path: str, want_psnr: float):
                     got.astype(np.int64), rec[pl][:hh, :ww].astype(np.int64)):
                 err = f"legacy-decoded frame {i} plane {pl} != port recon"
     rc, out = _captured(quality.main, ["--ref", y4m_path, "--dist", ivf_path,
-                                       "--frames", "1"])
+                                       "--frames", "1", "--cpu"])
     res = json.loads(out[-1]) if rc == 0 and out else {}
     if err is None and (res.get("frames") != 1
                         or res.get("y_psnr") != want_psnr):
@@ -2546,7 +2863,22 @@ def kernel_entry(name, source, replaces, counts, err, rows):
             **top, "launches_by_path": by_path, "shapes": rows}
 
 
+def dist_refs(dev_name: str) -> dict:
+    """The one-device cells the dist phase compares with, alone:
+    slice-1080p-chunk8 (run_chunk_cell) and slice-720p-default
+    (run_slice), as phase_slices runs them."""
+    grain9 = grain_clip()
+    c = run_chunk_cell("slice-1080p-chunk8", grain9, dev_name, packed=False)
+    frames = clean_clip_720p()
+    r = run_slice("slice-720p-default", frames, True, dev_name, filters=True)
+    return {"slice-1080p-chunk8": {**c, "name": "slice-1080p-chunk8",
+                                   "frames": grain9},
+            "slice-720p-default": slice_ref("slice-720p-default", r, frames)}
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--dist-rank"]:
+        return dist_rank(*sys.argv[2:5])
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "av1tpu_torch")):
         fail("run from the root of a checkout: av1tpu_torch/ must sit next "
@@ -2564,6 +2896,16 @@ def main() -> int:
     from av1tpu_torch import device as D
     D.resolve_device(dev_name)
     phase_build()
+    if "--dist" in sys.argv[1:]:
+        refs = dist_refs(dev_name)
+        phase_dist(card, refs, phase_stripes(card, refs)[1])
+        log(f"smoke --dist: {time.perf_counter() - t_start:.1f} s from start "
+            "to the last check")
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     k1_err, k1_rows, k2_err, k2_rows, g2_err, g2_rows = phase_kernels(
         torch.device(dev_name))
     daemon = phase_daemon(card)
@@ -2571,9 +2913,11 @@ def main() -> int:
     counts, runs, refs = phase_slices(dev_name, daemon["payloads"])
     counts["daemon-1080p"] = daemon["launches"]
     counts["encode_clip"] = ops["launches"]
-    counts.update(phase_stripes(dev_name, card, refs))
+    stripe_counts, threads = phase_stripes(card, refs)
+    counts.update(stripe_counts)
     counts.update(phase_legacy(dev_name))
     counts.update(phase_mesh(dev_name, card))
+    counts.update(phase_dist(card, refs, threads))
     if "--profile" in sys.argv[1:]:
         phase_profile(runs)
     phase_conform(dev_name)

@@ -411,6 +411,33 @@ def test_stripes_across_two_cards_equal_one_card(cuda):
 
 
 @pytest.mark.cuda
+def test_two_nccl_ranks_on_two_cards_equal_one_card(cuda, tmp_path):
+    """Two rank processes joined over NCCL through the daemon's
+    make_engine (AV1TPU_* variables, num_chips 0: one stripe a rank),
+    each on its own card, encode a clean 256x256 drift at chunk=3: every
+    P-frame in 2 stripes, halos and outputs through the collectives.
+    Each rank yields the one-card stream byte for byte, and launches
+    K1 and K2 on its own card."""
+    import torch_dist_ranks as R
+    from av1tpu_torch.config import TpuEncoderConfig
+    from av1tpu_torch.spec_engine import SpecTorchEngine
+    from av1tpu_torch.utils.cleansrc import clean_frame
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    frames = [clean_frame(256, 256, t, 0) for t in range(5)]
+    one = [p for p, _ in SpecTorchEngine(TpuEncoderConfig(chunk=3),
+                                         device="cuda:0").encode_stream(
+                                             frames, 96)]
+    ranks = R.run(2, "stream", tmp_path, timeout=300, device="cuda",
+                  cfg=dict(chunk=3), frames=frames)
+    assert [r["device"] for r in ranks] == ["cuda:0", "cuda:1"]
+    for r in ranks:
+        assert r["stripes"] == 2 and r["calls"] == {"key": 0, "inter": 4}
+        assert r["payloads"] == one
+        assert all(n > 0 for n in r["launches"])
+
+
+@pytest.mark.cuda
 def test_dashboard_reads_the_card(cuda):
     """av1top's reader on the card: the device count, card 0's name,
     and card-wide used memory (this process's context included) within

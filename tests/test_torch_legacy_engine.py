@@ -64,7 +64,8 @@ def _assert_decodes(payloads, recons, bd=8):
     seq = t_obu.write_obu(t_obu.OBU_SEQUENCE_HEADER, t_obu.SequenceHeader(
         width=W, height=H, bit_depth=bd).write())
     for mod in (j_dec, t_dec):
-        got = _decode(mod, payloads, seq, mod.DecoderState())
+        got = _decode(mod, payloads, seq, j_dec.DecoderState() if
+                      mod is j_dec else t_dec.DecoderState(device="cpu"))
         assert len(got) == len(recons)
         for fr, rec in zip(got, recons):
             for plane, r in zip((fr.y, fr.u, fr.v), rec):

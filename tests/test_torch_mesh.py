@@ -88,7 +88,7 @@ def test_v1_search_frame_and_stripes_match_jax(mesh8, monkeypatch):
     _ssd_surface, _search_stage_coarse and _search_stage on its blocks,
     search_v2 at 96x128 (its shift scans one dy row a group);
     encode_inter_frame and decode_inter_frame at
-    512x64 (decode recon = encode recon); halo_window against the
+    512x64 (decode recon = encode recon); halo_windows against the
     reference's ppermute halo exchange, and encode_inter_frame_sharded over
     8 stripes against the JAX function and the port's one-device frame;
     make_mesh's sizes."""
@@ -176,7 +176,8 @@ def test_v1_search_frame_and_stripes_match_jax(mesh8, monkeypatch):
     parts = stripes.shard_rows(GROUP8, _t(refs[0]))
     sh = h // 8
     for k in range(8):
-        _eq(stripes.halo_window(parts, k, motion.PAD, h, w, k * sh),
+        _eq(stripes.halo_windows(GROUP8, [parts], k,
+                                 [(motion.PAD, h, w, k * sh)])[0],
             want_w[k * (sh + 128):(k + 1) * (sh + 128)], f"halo {k}")
 
     # the striped v1 frame

@@ -161,7 +161,7 @@ def test_port_encode_decode_loads_no_av1tpu():
         "le = LegacyTorchEngine(TpuEncoderConfig(bitstream='av1tpu', "
         "speed=4), device='cpu')\n"
         "lo = [le.encode_next(f, 96)[0] for f in fr]\n"
-        "st = ldec.DecoderState()\n"
+        "st = ldec.DecoderState(device='cpu')\n"
         "seq = lobu.write_obu(lobu.OBU_SEQUENCE_HEADER, "
         "lobu.SequenceHeader(width=64, height=64).write())\n"
         "got = [ldec.decode_frame_payload(p, st) for p in [seq] + lo]\n"

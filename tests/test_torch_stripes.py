@@ -6,18 +6,16 @@ The stripe group is the CPU repeated, as the JAX tests' virtual mesh
 runs the sharded arithmetic on one host.  Every comparison is exact.
 """
 
-import threading
-
 import numpy as np
 import torch
 
 import jax
 import jax.numpy as jnp
 
+import torch_dist_ranks as R
 from av1tpu_torch.config import TpuEncoderConfig
 from av1tpu_torch import spec_engine as SE
-from av1tpu_torch.specav1 import (decoder, headers, obu, stripes, torch_inter,
-                                  torch_intra)
+from av1tpu_torch.specav1 import headers, obu, stripes, torch_inter
 from av1tpu_torch.utils import testsrc
 from av1tpu_torch.utils.cleansrc import clean_frame
 
@@ -60,7 +58,7 @@ def test_stripe_plans_match_jax():
 
 
 def test_halo_window_matches_jax():
-    """halo_window against jax_sharded._halo_window inside a shard_map on
+    """halo_windows against jax_sharded._halo_window inside a shard_map on
     the virtual 4-device mesh, for a luma and a chroma plane, first,
     middle and last stripe, with the row clamp and the column clamp at
     true dims below the padded ones; each window is also the one-device
@@ -91,21 +89,19 @@ def test_halo_window_matches_jax():
         parts = stripes.shard_rows((CPU,) * n, t)
         full = torch_inter.prep_ref(t, th_p, tw_p, pad)
         for k in range(n):
-            got = stripes.halo_window(parts, k, pad, th_p, tw_p, k * sh)
+            (got,) = stripes.halo_windows((CPU,) * n, [parts], k,
+                                          [(pad, th_p, tw_p, k * sh)])
             np.testing.assert_array_equal(got.numpy(),
                                           want[k * wh:(k + 1) * wh])
             torch.testing.assert_close(got, full[k * sh:k * sh + wh],
                                        rtol=0, atol=0)
 
 
-def test_striped_inter_frame_matches_jax():
-    """A striped P-frame, 4 stripes of 64 rows at 256x256 padded (a
-    240-row coded frame, so the 16-px strip is coded on the gathered
-    frame) with GOLDEN and deblocking on, against
-    jax_sharded.encode_inter_sharded on the virtual mesh: all 16 outputs
-    exact, and equal to the port's one-device encode.  The references are
-    seeded smooth planes (no keyframe program is compiled).  With GOLDEN
-    off, the striped frame equals the one-device one too."""
+def _golden_pframe():
+    """The striped golden P-frame's inputs (4 stripes of 64 rows at
+    256x256 padded, a 240-row coded frame) and jax_sharded's 16 outputs
+    for them on the virtual mesh: (numpy planes y, u, v, LAST y, u, v,
+    GOLDEN y, u, v; the JAX outputs; the arguments after the planes)."""
     from av1tpu.specav1 import jax_sharded as JS
     n, PH, PW, TH, TW, Q = 4, 256, 256, 240, 256, 90
     base = _smooth(PH + 16, PW + 16, 3)
@@ -136,78 +132,66 @@ def test_striped_inter_frame_matches_jax():
         mesh, *shard[:6], Q, bit_depth=8, th=TH, tw=TW,
         lf_y=jnp.int32(lf[0]), lf_uv=jnp.int32(lf[1]), deblock=True,
         golden=True, gld_y=shard[6], gld_u=shard[7], gld_v=shard[8])
+    return ((y, u, v) + ref + gld, [np.asarray(w) for w in want],
+            ((Q, 8, TH, TW), dict(lf_y=lf[0], lf_uv=lf[1], deblock=True)))
+
+
+def test_striped_inter_frame_matches_jax():
+    """A striped P-frame, 4 stripes of 64 rows at 256x256 padded (a
+    240-row coded frame, so the 16-px strip is coded on the gathered
+    frame) with GOLDEN and deblocking on, against
+    jax_sharded.encode_inter_sharded on the virtual mesh: all 16 outputs
+    exact, and equal to the port's one-device encode.  The references are
+    seeded smooth planes (no keyframe program is compiled).  With GOLDEN
+    off, the striped frame equals the one-device one too."""
+    planes, want, (args, kw) = _golden_pframe()
+    n = 4
     group = (CPU,) * n
-    tens = [torch.from_numpy(a) for a in (y, u, v) + ref + gld]
+    tens = [torch.from_numpy(a) for a in planes]
     got = stripes.encode_inter_striped(
         group, *tens[:3], [stripes.shard_rows(group, p) for p in tens[3:6]],
-        Q, 8, TH, TW, lf_y=lf[0], lf_uv=lf[1], deblock=True,
-        gld=[stripes.shard_rows(group, p) for p in tens[6:]])
-    one = torch_inter.encode_frame(*tens[:6], Q, 8, th=TH, tw=TW,
-                                   gld=tens[6:], lf_y=lf[0], lf_uv=lf[1],
-                                   deblock=True)
+        *args, gld=[stripes.shard_rows(group, p) for p in tens[6:]], **kw)
+    one = torch_inter.encode_frame(*tens[:6], *args[:2], th=args[2],
+                                   tw=args[3], gld=tens[6:], **kw)
     assert len(got) == len(want) == 16
     for i, (g, w, o) in enumerate(zip(got, want, one)):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=i)
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=i)
         torch.testing.assert_close(g, o, rtol=0, atol=0, msg=str(i))
     refsel = got[14]
     assert 0 < int(refsel.sum()) < refsel.numel(), "one reference only"
     assert (got[0] != 0).any(), "no motion found"
     parts = [stripes.shard_rows(group, p) for p in tens[3:6]]
-    got = stripes.encode_inter_striped(group, *tens[:3], parts, Q, 8, TH, TW)
-    one = torch_inter.encode_frame(*tens[:6], Q, 8, th=TH, tw=TW)
+    got = stripes.encode_inter_striped(group, *tens[:3], parts, *args)
+    one = torch_inter.encode_frame(*tens[:6], *args[:2], th=args[2],
+                                   tw=args[3])
     for i, (g, o) in enumerate(zip(got, one)):
         torch.testing.assert_close(g, o, rtol=0, atol=0, msg=str(i))
 
 
+def test_striped_inter_frame_over_ranks_matches_jax(tmp_path):
+    """The same golden P-frame over 4 ranks, one stripe a process joined
+    over gloo (``stripes.Ranks``: halos by all-gather, outputs gathered to
+    every rank): every rank's 16 outputs equal
+    jax_sharded.encode_inter_sharded's on the virtual mesh."""
+    planes, want, (args, kw) = _golden_pframe()
+    ranks = R.run(4, "inter", tmp_path, device="cpu", planes=planes,
+                  args=args, kw=kw)
+    for got in ranks:
+        assert len(got) == len(want) == 16
+        for i, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(g, w, err_msg=str(i))
+
+
 def _encode(cfg, frames, n=0):
     """(payloads, recons, striped calls) of encode_stream on the CPU with
-    ``num_chips = n``.  Each frame's reconstruction is captured from the
-    outermost encoder call that makes it (a stripes entry, or the
-    one-device encoder), and the stripes entries' calls are counted."""
-    calls = {"key": 0, "inter": 0}
-    recons = []
-    inside = threading.local()
-    real = {(stripes, "encode_key_striped"): ("key", slice(0, 3)),
-            (stripes, "encode_inter_striped"): ("inter", slice(5, 8)),
-            (torch_intra, "encode_frame"): (None, slice(0, 3)),
-            (torch_inter, "encode_frame"): (None, slice(5, 8))}
-
-    def spy(fn, kind, sl):
-        def call(*a, **k):
-            depth = getattr(inside, "depth", 0)
-            inside.depth = depth + 1
-            try:
-                out = fn(*a, **k)
-            finally:
-                inside.depth = depth
-            if depth == 0:
-                recons.append(tuple(p.numpy().copy() for p in out[sl]))
-                if kind:
-                    calls[kind] += 1
-            return out
-        return call
-
-    saved = {key: getattr(*key) for key in real}
-    for (mod, name), (kind, sl) in real.items():
-        setattr(mod, name, spy(saved[mod, name], kind, sl))
-    try:
-        eng = SE.SpecTorchEngine(TpuEncoderConfig(**{**cfg, "num_chips": n}),
-                                 device="cpu")
-        out = list(eng.encode_stream(frames, 96))
-    finally:
-        for (mod, name), fn in saved.items():
-            setattr(mod, name, fn)
-    return [p for p, _ in out], recons, calls
+    ``num_chips = n`` (``torch_dist_ranks.spied_stream``)."""
+    eng = SE.SpecTorchEngine(TpuEncoderConfig(**{**cfg, "num_chips": n}),
+                             device="cpu")
+    return R.spied_stream(eng, frames, 96)
 
 
 def _decodes_to(payloads, recons):
-    dec = decoder.decode_stream(payloads)
-    assert len(dec) == len(payloads) == len(recons)
-    for d, r in zip(dec, recons):
-        for pl in range(3):
-            hh, ww = d[pl].shape
-            np.testing.assert_array_equal(np.asarray(d[pl], np.int64),
-                                          r[pl][:hh, :ww].astype(np.int64))
+    R.decodes_to(payloads, recons)
 
 
 def _grainy(w, h, i):

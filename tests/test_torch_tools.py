@@ -13,6 +13,7 @@ PSNR/SSIM floats, decoded planes.
 import contextlib
 import dataclasses
 import io
+import inspect
 import json
 
 import numpy as np
@@ -230,7 +231,7 @@ def clip(tmp_path_factory):
 
 def _legacy_decode(tus):
     """The port's legacy decoder over the IVF's temporal units."""
-    state = legacy_decoder.DecoderState()
+    state = legacy_decoder.DecoderState(device="cpu")
     return [fr for fr in (legacy_decoder.decode_frame_payload(tu, state)
                           for tu in tus) if fr is not None]
 
@@ -272,6 +273,30 @@ def test_encode_clip_fails_without_a_card(tmp_path):
     assert "no CUDA device" in err
 
 
+def test_legacy_decoder_and_quality_default_to_the_card(clip, tmp_path):
+    """The port's legacy decoder runs on the card unless asked for the
+    CPU, as its original runs on JAX's default device: DecoderState and
+    decode_ivf default to "cuda", and without a card decoding the IVF, or
+    quality without --cpu, raises naming the missing card (encode_clip
+    --cpu --verify, the fixture, decodes on the CPU it encoded on)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    path, _, tus, frames = clip
+    assert legacy_decoder.DecoderState().device == "cuda"
+    assert inspect.signature(legacy_decoder.decode_ivf).parameters[
+        "device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        legacy_decoder.decode_frame_payload(tus[0],
+                                            legacy_decoder.DecoderState())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        legacy_decoder.decode_ivf(path)
+    src = str(tmp_path / "src.y4m")
+    y4m.write(src, [(f.y, f.u, f.v) for f in frames])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quality.main(["--ref", src, "--dist", path])
+    assert len(legacy_decoder.decode_ivf(path, device="cpu")) == N
+
+
 @pytest.mark.parametrize("bd", [8, 10])
 def test_quality_metrics_equal_jax_package(bd):
     """psnr and ssim: the JAX package's floats, bit for bit."""
@@ -290,7 +315,8 @@ def test_quality_json_line_for_y4m_against_ivf(clip, tmp_path):
     path, _, tus, frames = clip
     src = str(tmp_path / "src.y4m")
     y4m.write(src, [(f.y, f.u, f.v) for f in frames])
-    rv, lines, _ = _run(quality.main, ["--ref", src, "--dist", path])
+    rv, lines, _ = _run(quality.main, ["--ref", src, "--dist", path,
+                                       "--cpu"])
     assert rv == 0 and len(lines) == 1
     got = json.loads(lines[0])
     dec = _legacy_decode(tus)
