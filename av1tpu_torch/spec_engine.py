@@ -59,6 +59,7 @@ from av1tpu_torch.specav1 import obu as obu_mod
 from av1tpu_torch.specav1 import (recon, stripes, torch_inter, torch_intra,
                                   torch_lr)
 from av1tpu_torch.specav1 import writer as W
+from av1tpu_torch.utils import spans as tracer
 
 I32 = torch.int32
 
@@ -487,29 +488,36 @@ class SpecTorchEngine(TorchEngine):
                 max_workers=1, thread_name_prefix="av1torch-dispatch")
         return self._dispatch
 
-    def _on_worker(self, group, fn, *args, **kw):
+    def _on_worker(self, group, fn, *args, item: int = 0, n: int = 1, **kw):
         """A future of ``fn(*args, **kw)`` run on the ordered dispatch
         worker, onto the streams current on this thread, one a device of
         the engine and of ``group``, so that stream order queues every
         later reader behind its work (the current stream is per device
-        and per thread)."""
+        and per thread).  ``item`` and ``n``: the dispatch's sequence
+        number and frames, for its spans."""
         streams = [torch.cuda.current_stream(d) for d in
                    dict.fromkeys((self.device,) + (group or ()))
                    if d.type == "cuda"]
 
         def run():
-            with contextlib.ExitStack() as on_streams:
+            tracer.end("dispatch.queued", queued, item, n)
+            with tracer.span("dispatch.job", item, n), \
+                    contextlib.ExitStack() as on_streams:
                 for st in streams:
                     on_streams.enter_context(torch.cuda.stream(st))
                 return fn(*args, **kw)
-        return self._dispatch_pool().submit(run)
+        pool = self._dispatch_pool()
+        queued = tracer.begin()
+        return pool.submit(run)
 
-    def _resolve_refs(self):
+    def _resolve_refs(self, item: int = 0):
         """The reference chain may be a thunk onto an in-flight chunk
-        dispatch; resolve it to device tensors."""
+        dispatch; resolve it to device tensors (``item``: the waiting
+        dispatch's sequence number)."""
         r = self._ref_dev
         if callable(r):
-            r = r()
+            with tracer.span("wait.dispatch", item):
+                r = r()
             self._ref_dev = r
         return r
 
@@ -551,6 +559,7 @@ class SpecTorchEngine(TorchEngine):
             is_key = self._decide_key(frame, force_key)
         if self._ref_dev is None:
             is_key = True
+        item = tracer.item()
         h, w = frame.height, frame.width
         bd = frame.bit_depth
         if bd not in (8, 10):
@@ -596,14 +605,16 @@ class SpecTorchEngine(TorchEngine):
                     group, stripes.encode_key_striped,
                     group, *_pad_rows((yj, uj, vj), ph_s, edge=True),
                     qindex, bd, th, tw, stripe_h, local_brs,
-                    qround=self._qround, **filters).result()
+                    qround=self._qround, item=item, **filters).result()
                 rows = (ph, ph // 2, ph // 2) * 2 + (ph // 32,) * 9
                 out = tuple(o[:r] for o, r in zip(out, rows)) + out[15:]
             else:
-                out = torch_intra.encode_frame(
-                    yj, uj, vj, qindex, nbr=ph // 32, nbc=pw // 32,
-                    bit_depth=bd, th=th, tw=tw, tile_row_starts=brs,
-                    qround=self._qround, **filters)
+                # the parent of the key's waves (``key.wave``)
+                with tracer.span("key", item):
+                    out = torch_intra.encode_frame(
+                        yj, uj, vj, qindex, nbr=ph // 32, nbc=pw // 32,
+                        bit_depth=bd, th=th, tw=tw, tile_row_starts=brs,
+                        qround=self._qround, **filters)
             # the filtered recon is both LAST and the GOP's GOLDEN
             self._ref_dev = out[0:3]
             self._golden_dev = out[0:3]
@@ -612,8 +623,8 @@ class SpecTorchEngine(TorchEngine):
             pk = pack_outputs(out[3], out[4], out[5], grids, cap)
             return ("key", qindex, w, h, th, tw, ph, pw, bd, oh, refresh,
                     out, pk, cap, lfy, lfuv, damp, self._lr, self._golden,
-                    chips)
-        refs = self._resolve_refs()
+                    chips, item)
+        refs = self._resolve_refs(item)
         if group:
             # stripes need ph_s = stripe_pad(ph) rows: the source is edge-
             # padded, the references zero-padded (the halo clamp never
@@ -625,7 +636,8 @@ class SpecTorchEngine(TorchEngine):
                 [stripes.shard_rows(group, p)
                  for p in _pad_rows(refs, ph, edge=False)],
                 qindex, bd, th=th, tw=tw, qround=self._qround,
-                gld=self._resolve_golden(ph, group), **filters).result()
+                gld=self._resolve_golden(ph, group), item=item,
+                **filters).result()
         else:
             out = torch_inter.encode_frame(
                 yj, uj, vj, refs[0], refs[1], refs[2], qindex, bd, th=th,
@@ -635,7 +647,8 @@ class SpecTorchEngine(TorchEngine):
             self._ref_dev = out[5:8]
         pk = pack_outputs(out[2], out[3], out[4], _inter_grids([out]), cap)
         return ("inter", qindex, w, h, th, tw, ph, pw, bd, oh, refresh,
-                out, pk, cap, lfy, lfuv, damp, self._lr, self._golden, chips)
+                out, pk, cap, lfy, lfuv, damp, self._lr, self._golden, chips,
+                item)
 
     def _submit_chunk(self, frames, qindexes):
         """K P-frames as one dispatch.  Packing, upload and launch issue
@@ -652,6 +665,7 @@ class SpecTorchEngine(TorchEngine):
         true_ok = _axis_true_dims_ok(w) and _axis_true_dims_ok(h, True)
         th, tw = (h, w) if true_ok else (ph, pw)
         k = len(frames)
+        item = tracer.item()
         ohs = [(self._order_hint + i) & 127 for i in range(k)]
         self._order_hint += k
         group = self._stripe_group(ph, th)
@@ -689,9 +703,10 @@ class SpecTorchEngine(TorchEngine):
             refs = _pad_rows(refs, ph, edge=False)
             src = None
             if use_pack:
-                bh = _grow(base_host, ph, pw)
-                pk = (io_pack.pack_chunk(planes, bh, bit_depth=bd)
-                      if bh is not None else None)
+                with tracer.span("pack"):
+                    bh = _grow(base_host, ph, pw)
+                    pk = (io_pack.pack_chunk(planes, bh, bit_depth=bd)
+                          if bh is not None else None)
                 bdev = None
                 if pk is not None:
                     bdev = base_dev() if callable(base_dev) else base_dev
@@ -700,27 +715,31 @@ class SpecTorchEngine(TorchEngine):
                     nib, ep, ev, modes = pk
                     if ev.dtype == np.uint16:
                         ev = ev.view(np.int16)
-                    src = (to_device(nib, dev), to_device(ep, dev),
-                           to_device(ev, dev), modes, *bdev)
+                    with tracer.span("upload"):
+                        src = (to_device(nib, dev), to_device(ep, dev),
+                               to_device(ev, dev), modes, *bdev)
             if src is None:
-                src = upload_chunk_raw(planes, dev)
-            return encode_chunk(src, refs, qi, [a for a, _ in lf],
-                                [b for _, b in lf],
-                                [d or 4 for d in damps], **kw)
+                with tracer.span("upload"):
+                    src = upload_chunk_raw(planes, dev)
+            with tracer.span("issue", cpu=True):
+                return encode_chunk(src, refs, qi, [a for a, _ in lf],
+                                    [b for _, b in lf],
+                                    [d or 4 for d in damps], **kw)
 
-        fut = self._on_worker(group, worker)
+        fut = self._on_worker(group, worker, item=item, n=k)
         self._ref_dev = lambda: fut.result()[0]
         self._src_base_dev = lambda: fut.result()[3]
         return (qi, w, h, th, tw, ph, pw, bd, ohs, k, fut, lf, damps,
-                self._lr, self._golden, len(group) if group else 1)
+                self._lr, self._golden, len(group) if group else 1, item)
 
     @staticmethod
     def _finalize_chunk(pending) -> list:
         """Materialize a chunk and entropy-code its K frames on the
         entropy pool (copied from the JAX engine's _finalize_chunk)."""
         (qindexes, w, h, th, tw, ph, pw, bd, ohs, k, fut, lfs,
-         damps, lr_on, golden_on, chips) = pending
-        _, pk, full = fut.result()[:3]
+         damps, lr_on, golden_on, chips, item) = pending
+        with tracer.span("wait.dispatch", item, k):
+            _, pk, full = fut.result()[:3]
         rs = (w, h) if (tw, th) != (w, h) else None
         mi_cols, mi_rows = 2 * ((tw + 7) >> 3), 2 * ((th + 7) >> 3)
         gh_t, gw_t = (mi_rows + 7) // 8, (mi_cols + 7) // 8
@@ -728,7 +747,8 @@ class SpecTorchEngine(TorchEngine):
         B = gh * gw
         ntot = ph * pw + 2 * (ph // 2) * (pw // 2)
         trl2, spans, _ = _tile_plan(th, chips)
-        maskbytes, vals, count, grids = (t.cpu().numpy() for t in pk)
+        with tracer.span("wait.card", item, k):
+            maskbytes, vals, count, grids = (t.cpu().numpy() for t in pk)
         overflow = int(count) > vals.shape[0]
         if not overflow:
             flat = native.densify(maskbytes, vals, k * ntot)
@@ -754,6 +774,7 @@ class SpecTorchEngine(TorchEngine):
         lrtapss = grids[p1:p1 + k * nru * 6].reshape(k, nru, 6)
 
         def one(i):
+            tracer.end("entropy.queued", queued, item)
             if overflow:
                 ylv, ulv, vlv = (full[j][i].cpu().numpy() for j in range(3))
             else:
@@ -795,21 +816,24 @@ class SpecTorchEngine(TorchEngine):
         # frames in parallel on the entropy pool; each frame's tiles fan
         # out further on the native tile pool (distinct pools, so no
         # nested-submit deadlock)
-        return list(_entropy_pool().map(one, range(k)))
+        queued = tracer.begin()
+        with tracer.span("wait.entropy", item, k):
+            return list(_entropy_pool().map(one, range(k)))
 
     @staticmethod
     def _finalize(pending) -> tuple[bytes, bool]:
         """Materialize a pending frame and entropy-code it (header and
         tile assembly copied from the JAX engine's _finalize)."""
         (kind, qindex, w, h, th, tw, ph, pw, bd, oh, refresh, out,
-         pk, cap, lfy, lfuv, cdamp, lr_on, golden_on, chips) = pending
+         pk, cap, lfy, lfuv, cdamp, lr_on, golden_on, chips, item) = pending
         rs = (w, h) if (tw, th) != (w, h) else None
         mi_cols, mi_rows = 2 * ((tw + 7) >> 3), 2 * ((th + 7) >> 3)
         gh_t, gw_t = (mi_rows + 7) // 8, (mi_cols + 7) // 8
         gh, gw = ph // 32, pw // 32
         shapes = [(ph, pw), (ph // 2, pw // 2), (ph // 2, pw // 2)]
         trl2, spans, _ = _tile_plan(th, chips)
-        maskbytes, vals, count, grids = (t.cpu().numpy() for t in pk)
+        with tracer.span("wait.card", item):
+            maskbytes, vals, count, grids = (t.cpu().numpy() for t in pk)
         lvs = _unpack_levels(maskbytes, vals, count, shapes)
         strip = (th % 32) == 16
         nsc = 2 * gw

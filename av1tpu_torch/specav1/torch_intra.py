@@ -30,6 +30,7 @@ from av1tpu_torch.specav1.tile import MODE_TO_TXFM
 from av1tpu_torch.specav1.transforms import (Quantizer, fwd_mat,
                                              inv_tx2d_add,
                                              inv_tx2d_add_mixed)
+from av1tpu_torch.utils import spans as tracer
 
 I32 = torch.int32
 F32 = torch.float32
@@ -647,17 +648,18 @@ def encode_frame(y, u, v, qindex: int, nbr: int, nbc: int, bit_depth: int,
         if strip_same_sb:
             strip_row = r == nbr_main - 1
             split_ok = split_ok & ~strip_row
-        outs = _block_step(ctx, rec_y, rec_u, rec_v, src_y, src_u, src_v,
-                           r, c, ha, hl, ntr, nbl, fh_c, fw8, strip_row,
-                           split_ok)
-        for plane, blk, nn in zip(planes, outs[:6], (32, 16, 16) * 2):
-            h, w = plane.shape
-            plane.view(h // nn, nn, w // nn, nn)[r, :, c, :] = blk
-        # block outputs are (mode, uv, angle, skip, ...); the grids are
-        # stored (mode, uv, skip, angle, ...)
-        mode, uv, angle, skip = outs[6:10]
-        for g, val in zip(grids, (mode, uv, skip, angle) + outs[10:]):
-            g[r, c] = val
+        with tracer.span("key.wave", n=0):
+            outs = _block_step(ctx, rec_y, rec_u, rec_v, src_y, src_u,
+                               src_v, r, c, ha, hl, ntr, nbl, fh_c, fw8,
+                               strip_row, split_ok)
+            for plane, blk, nn in zip(planes, outs[:6], (32, 16, 16) * 2):
+                h, w = plane.shape
+                plane.view(h // nn, nn, w // nn, nn)[r, :, c, :] = blk
+            # block outputs are (mode, uv, angle, skip, ...); the grids
+            # are stored (mode, uv, skip, angle, ...)
+            mode, uv, angle, skip = outs[6:10]
+            for g, val in zip(grids, (mode, uv, skip, angle) + outs[10:]):
+                g[r, c] = val
     rec_y, rec_u, rec_v, strip_skip, cdefs, lr_choice, lr_taps = \
         torch_inter.finish_frame((y, u, v), (rec_y, rec_u, rec_v),
                                  (lv_y, lv_u, lv_v), grids[2], grids[4],
