@@ -1,5 +1,8 @@
 // Copied from av1tpu/encoder/entropy/native/spec_tile.cc (without the CDF
-// read-back, which the port does not use).
+// read-back, which the port does not use).  Departure from the original's
+// bytes: the extra MV search negates a candidate whose reference's sign
+// bias differs from the block's (spec 7.10.2.12; stw_set_sign_bias), and
+// the inter walk counts its blocks and negations (stw_counts).
 // Spec-AV1 tile writer: the sequential entropy hot loop, in C++.
 //
 // Port of av1tpu/specav1/writer.py (TileWriter) for the fixed-32x32
@@ -240,6 +243,11 @@ struct SpecTileWriter {
   std::vector<int32_t> mi_mvr, mi_mvc;
   std::vector<int8_t> mi_n4w, mi_n4h;  // coding-block dims in mi units
   std::vector<uint8_t> mi_newmv;
+  // RefFrameSignBias by reference frame (stw_set_sign_bias), and the
+  // inter walk's counts: inter blocks, GOLDEN blocks, extra-search
+  // candidates negated for their sign bias
+  int sign_bias[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  int64_t n_inter = 0, n_golden = 0, n_flips = 0;
   int sb_row = 0;
   // tile-row placement: this writer's first mi row within the frame,
   // and the FRAME's total mi rows (spec MV clamping is frame-relative
@@ -989,12 +997,21 @@ void find_mv_stack_g(SpecTileWriter *w, int mi_row, int mi_col, int bw4,
   }
 
   // single-ref extension when short (spec 7.10.2.12 extra search):
-  // accepts ANY inter ref; both passes walk at most min(w4, h4) units
+  // accepts ANY inter ref, its vector negated where that ref's sign
+  // bias differs from ref_frame's (departure: the original never
+  // negates); both passes walk at most min(w4, h4) units
   if (s->n < 2) {
     auto process_single = [&](int cr, int cc) {
       size_t ci = (size_t)cr * w->mi_cols + cc;
-      if (w->mi_ref[ci] <= 0) return;
-      stack_add(s, w->mi_mvr[ci], w->mi_mvc[ci], 2);
+      int cand_ref = w->mi_ref[ci];
+      if (cand_ref <= 0) return;
+      int mvr = w->mi_mvr[ci], mvc = w->mi_mvc[ci];
+      if (w->sign_bias[cand_ref] != w->sign_bias[ref_frame]) {
+        mvr = -mvr;
+        mvc = -mvc;
+        ++w->n_flips;
+      }
+      stack_add(s, mvr, mvc, 2);
     };
     int num4x4 = imin(imin(16, bw4), imin(16, bh4));
     for (int i = 0; max_row_offset <= -1 && i < num4x4 && s->n < 2;) {
@@ -1325,6 +1342,20 @@ void stw_set_tile_row(SpecTileWriter *w, int row0_mi, int frame_mi_rows) {
   w->frame_mi_rows = frame_mi_rows;
 }
 
+// RefFrameSignBias of the frame, indexed by reference frame (8 ints;
+// LAST_FRAME = 1): the extra MV search negates across a difference.
+void stw_set_sign_bias(SpecTileWriter *w, const int32_t *bias) {
+  for (int i = 0; i < 8; ++i) w->sign_bias[i] = bias[i] ? 1 : 0;
+}
+
+// The counts of the inter tiles written so far: out[0] inter blocks,
+// out[1] of them GOLDEN, out[2] extra-search candidates negated.
+void stw_counts(const SpecTileWriter *w, int64_t *out) {
+  out[0] = w->n_inter;
+  out[1] = w->n_golden;
+  out[2] = w->n_flips;
+}
+
 void stw_destroy(SpecTileWriter *w) {
   if (w->enc) ec_enc_destroy(w->enc);
   delete w;
@@ -1453,6 +1484,8 @@ static void encode_inter_unit(SpecTileWriter *w, int br, int bc,
                               const int32_t *vlv, int cstride,
                               int ref = 1) {
   if (is_inter) {
+    ++w->n_inter;
+    if (ref == 4) ++w->n_golden;
     MvStack s;
     int b4 = kBlockSizes[bsize].w4;
     find_mv_stack_g(w, br, bc, b4, b4, ref, &s);

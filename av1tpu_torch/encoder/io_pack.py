@@ -1,5 +1,6 @@
-# Copied from av1tpu/encoder/io_pack.py (pack_chunk verbatim; unpack_chunk
-# rewritten as torch tensor code).
+# Copied from av1tpu/encoder/io_pack.py (pack_chunk's returns verbatim, its
+# residual taken a frame at a time so that it gives up at the first frame
+# over the cap; unpack_chunk rewritten as torch tensor code).
 """Lossless source-upload packing: mod-2^bd delta + 4-bit nibbles.
 
 A chunk of K source frames travels to the device as one upload.  This
@@ -56,38 +57,45 @@ def pack_chunk(planes: list, base: tuple, cap: int | None = None,
     mod = 1 << bit_depth
     if cap is None:
         cap = CAP_PER_FRAME * k
-    parts = []
+    parts, fits = [], []
+    n_exc = 0
     modes = np.empty(3, np.int32)
     mask = mod - 1
     for pi in range(3):
-        cur = np.stack([p[pi] for p in planes])            # (k, H, W)
-        prev = np.concatenate([base[pi][None], cur[:-1]])
-        dt = (cur.astype(np.int32) - prev.astype(np.int32)) & mask
+        cur = [p[pi] for p in planes]
+        prev = [base[pi]] + cur[:-1]
         # pick the predictor on a 1-in-8 row sample (a full compare
         # costs a second pass for a decision that is stable per
         # content class)
-        s = cur[:, ::8, :].astype(np.int32)
-        et = int((~_fit4((s - prev[:, ::8, :].astype(np.int32))
-                         & mask, mod)).sum())
+        s = np.stack([c[::8] for c in cur]).astype(np.int32)
+        sp = np.stack([c[::8] for c in prev]).astype(np.int32)
+        et = int((~_fit4((s - sp) & mask, mod)).sum())
         sh = np.empty_like(s)
-        sh[:, :, 0] = (s[:, :, 0]
-                       - prev[:, ::8, 0].astype(np.int32)) & mask
+        sh[:, :, 0] = (s[:, :, 0] - sp[:, :, 0]) & mask
         sh[:, :, 1:] = (s[:, :, 1:] - s[:, :, :-1]) & mask
         es = int((~_fit4(sh, mod)).sum())
-        if es < et:
-            d = dt  # reuse storage shape; fill spatial in-place below
-            d[:, :, 1:] = (cur[:, :, 1:].astype(np.int32)
-                           - cur[:, :, :-1].astype(np.int32)) & mask
-            modes[pi] = MODE_SPATIAL_H
-        else:
-            d = dt
-            modes[pi] = MODE_TEMPORAL
+        spatial = es < et
+        modes[pi] = MODE_SPATIAL_H if spatial else MODE_TEMPORAL
+        # the residual a frame at a time: a chunk gives up at the first
+        # frame whose outliers pass the cap (deep grain: the first)
+        d = np.empty((k,) + cur[0].shape, np.int32)
+        fit = np.empty(d.shape, bool)
+        for f in range(k):
+            c = cur[f].astype(np.int32)
+            if spatial:  # column 0 temporal, the rest the left neighbour
+                d[f, :, 0] = (c[:, 0] - prev[f][:, 0].astype(np.int32)) & mask
+                d[f, :, 1:] = (c[:, 1:] - c[:, :-1]) & mask
+            else:
+                d[f] = (c - prev[f].astype(np.int32)) & mask
+            fit[f] = _fit4(d[f], mod)
+            n_exc += fit[f].size - int(np.count_nonzero(fit[f]))
+            if n_exc > cap:
+                return None
         parts.append(d.reshape(-1))
-    flat = np.concatenate(parts).astype(np.int32)
-    fit = _fit4(flat, mod)
+        fits.append(fit.reshape(-1))
+    flat = np.concatenate(parts)
+    fit = np.concatenate(fits)
     pos = np.nonzero(~fit)[0]
-    if pos.size > cap:
-        return None
     nibs = np.where(fit, flat, 0).astype(np.uint8) & 15
     nib = (nibs[0::2] | (nibs[1::2] << 4)).astype(np.uint8)
     exc_pos = np.full(cap, flat.size, np.int32)   # OOB pad -> 'drop'

@@ -68,6 +68,26 @@ I32 = torch.int32
 # full planes
 SPARSE_CAP_FRACTION = 32
 
+# the writer's counts of a P-frame (native.encode_tile_rows), recorded as
+# spans over its tile coding whose ``n`` is the count
+MV_COUNTS = ("mv.inter_blocks", "mv.golden_blocks", "mv.signbias_flips")
+
+
+def _ref_slots(golden_on: bool) -> tuple:
+    """An inter frame's ref_frame_idx: GOLDEN reads slot 1 (the GOP's
+    key), every other reference slot 0 (the previous frame)."""
+    return (0, 0, 0, 1, 0, 0, 0) if golden_on else (0,) * 7
+
+
+def _encode_inter_tiles(item, *args, **kw) -> list:
+    """native.encode_tile_rows for a P-frame, its MV counts recorded."""
+    t0 = tracer.begin()
+    counts = np.zeros(3, np.int64)
+    tiles = native.encode_tile_rows("inter", *args, counts=counts, **kw)
+    for name, n in zip(MV_COUNTS, counts):
+        tracer.end(name, t0, item, int(n))
+    return tiles
+
 
 # --- host helpers copied from av1tpu/spec_engine.py (a JAX module) ---------
 
@@ -445,6 +465,8 @@ class SpecTorchEngine(TorchEngine):
                              f"not the engine's device {self.device}")
         self._golden_parts = None  # (ph, GOLDEN row slices) when striped
         self._order_hint = 0
+        # RefOrderHint per slot, as a decoder holds it after each frame
+        self._slot_hints = [0] * 8
         self._dispatch = None  # ordered upload+dispatch worker (lazy)
         self._gop_deblock = False
         self._qround = float(c.qround)
@@ -477,6 +499,7 @@ class SpecTorchEngine(TorchEngine):
         super().start_stream()
         self._golden_parts = None
         self._order_hint = 0
+        self._slot_hints = [0] * 8
         self._gop_deblock = False
         self._src_base_host = None
         self._src_base_dev = None
@@ -543,6 +566,15 @@ class SpecTorchEngine(TorchEngine):
             self._golden_parts = (ph, [stripes.shard_rows(group, p)
                                        for p in self._golden_dev])
         return self._golden_parts[1]
+
+    def _sign_bias(self, oh: int, refresh: bool = True) -> tuple:
+        """RefFrameSignBias of an inter frame with order hint ``oh``, from
+        the slots' hints; a refreshing frame then takes slot 0."""
+        sb = W.ref_frame_sign_bias(oh, self._slot_hints,
+                                   _ref_slots(self._golden))
+        if refresh:
+            self._slot_hints[0] = oh
+        return sb
 
     def _chunk_cap(self, width: int, height: int, bit_depth: int) -> int:
         """K P-frames per chunk dispatch, capped as the JAX engine caps
@@ -619,11 +651,12 @@ class SpecTorchEngine(TorchEngine):
             self._ref_dev = out[0:3]
             self._golden_dev = out[0:3]
             self._golden_parts = None
+            self._slot_hints = [oh] * 8  # a shown key refreshes every slot
             grids = torch.cat([out[i].reshape(-1) for i in range(6, 19)])
             pk = pack_outputs(out[3], out[4], out[5], grids, cap)
             return ("key", qindex, w, h, th, tw, ph, pw, bd, oh, refresh,
                     out, pk, cap, lfy, lfuv, damp, self._lr, self._golden,
-                    chips, item)
+                    chips, item, None)
         refs = self._resolve_refs(item)
         if group:
             # stripes need ph_s = stripe_pad(ph) rows: the source is edge-
@@ -648,7 +681,7 @@ class SpecTorchEngine(TorchEngine):
         pk = pack_outputs(out[2], out[3], out[4], _inter_grids([out]), cap)
         return ("inter", qindex, w, h, th, tw, ph, pw, bd, oh, refresh,
                 out, pk, cap, lfy, lfuv, damp, self._lr, self._golden, chips,
-                item)
+                item, self._sign_bias(oh, refresh))
 
     def _submit_chunk(self, frames, qindexes):
         """K P-frames as one dispatch.  Packing, upload and launch issue
@@ -668,6 +701,7 @@ class SpecTorchEngine(TorchEngine):
         item = tracer.item()
         ohs = [(self._order_hint + i) & 127 for i in range(k)]
         self._order_hint += k
+        sbs = [self._sign_bias(oh) for oh in ohs]
         group = self._stripe_group(ph, th)
         if group:
             # chunk x stripe: each frame padded to the stripe height; the
@@ -730,14 +764,15 @@ class SpecTorchEngine(TorchEngine):
         self._ref_dev = lambda: fut.result()[0]
         self._src_base_dev = lambda: fut.result()[3]
         return (qi, w, h, th, tw, ph, pw, bd, ohs, k, fut, lf, damps,
-                self._lr, self._golden, len(group) if group else 1, item)
+                self._lr, self._golden, len(group) if group else 1, item,
+                sbs)
 
     @staticmethod
     def _finalize_chunk(pending) -> list:
         """Materialize a chunk and entropy-code its K frames on the
         entropy pool (copied from the JAX engine's _finalize_chunk)."""
         (qindexes, w, h, th, tw, ph, pw, bd, ohs, k, fut, lfs,
-         damps, lr_on, golden_on, chips, item) = pending
+         damps, lr_on, golden_on, chips, item, sbs) = pending
         with tracer.span("wait.dispatch", item, k):
             _, pk, full = fut.result()[:3]
         rs = (w, h) if (tw, th) != (w, h) else None
@@ -786,8 +821,8 @@ class SpecTorchEngine(TorchEngine):
                     .reshape(ph // 2, pw // 2)
             modes = (1 + 3 * refselss[i].reshape(gh, gw)[:gh_t, :gw_t]
                      ).astype(np.int32)
-            tiles = native.encode_tile_rows(
-                "inter", qindexes[i], mi_cols, mi_rows, spans,
+            tiles = _encode_inter_tiles(
+                item, qindexes[i], mi_cols, mi_rows, spans,
                 (modes, mv8s[i].reshape(gh, gw, 2)[:gh_t, :gw_t],
                  skips[i].reshape(gh, gw)[:gh_t, :gw_t]),
                 ylv, ulv, vlv,
@@ -797,14 +832,14 @@ class SpecTorchEngine(TorchEngine):
                 if lr_on else None,
                 split3=(splitss[i].reshape(gh, gw)[:gh_t, :gw_t],
                         mv16ss[i].reshape(gh, gw, 4, 2)[:gh_t, :gw_t],
-                        skip16ss[i].reshape(gh, gw, 4)[:gh_t, :gw_t]))
+                        skip16ss[i].reshape(gh, gw, 4)[:gh_t, :gw_t]),
+                sign_bias=sbs[i])
             ch = None
             if damps[i] is not None:
                 ch = (damps[i],) + tuple(int(x) for x in cdefss[i])
             hdr = W.write_inter_frame_header(
                 tw, th, qindexes[i], order_hint=ohs[i],
-                ref_slots=(0, 0, 0, 1, 0, 0, 0) if golden_on
-                else (0,) * 7,
+                ref_slots=_ref_slots(golden_on),
                 render_size=rs, tile_rows_log2=trl2,
                 lf_level=lfs[i][0], lf_level_uv=lfs[i][1], cdef=ch,
                 lr_types=(1, 0, 0) if lr_on else None)
@@ -825,7 +860,8 @@ class SpecTorchEngine(TorchEngine):
         """Materialize a pending frame and entropy-code it (header and
         tile assembly copied from the JAX engine's _finalize)."""
         (kind, qindex, w, h, th, tw, ph, pw, bd, oh, refresh, out,
-         pk, cap, lfy, lfuv, cdamp, lr_on, golden_on, chips, item) = pending
+         pk, cap, lfy, lfuv, cdamp, lr_on, golden_on, chips, item,
+         sbias) = pending
         rs = (w, h) if (tw, th) != (w, h) else None
         mi_cols, mi_rows = 2 * ((tw + 7) >> 3), 2 * ((th + 7) >> 3)
         gh_t, gw_t = (mi_rows + 7) // 8, (mi_cols + 7) // 8
@@ -909,17 +945,17 @@ class SpecTorchEngine(TorchEngine):
         refsel = grids[tail + 13 * B:tail + 14 * B].reshape(gh, gw)
         # inter mode grid: 1 = inter/LAST, 4 = inter/GOLDEN (slot 1)
         modes = (1 + 3 * refsel[:gh_t, :gw_t]).astype(np.int32)
-        tiles = native.encode_tile_rows(
-            "inter", qindex, mi_cols, mi_rows, spans,
+        tiles = _encode_inter_tiles(
+            item, qindex, mi_cols, mi_rows, spans,
             (modes, mv8.reshape(gh, gw, 2)[:gh_t, :gw_t],
              skip.reshape(gh, gw)[:gh_t, :gw_t]),
             ylv, ulv, vlv, strip_skip=strip_skip, lr=lr_arg,
             split3=(splits[:gh_t, :gw_t], mvs16[:gh_t, :gw_t],
-                    skips16[:gh_t, :gw_t]))
+                    skips16[:gh_t, :gw_t]), sign_bias=sbias)
         hdr = W.write_inter_frame_header(
             tw, th, qindex, order_hint=oh,
             refresh_frame_flags=0x01 if refresh else 0x00,
-            ref_slots=(0, 0, 0, 1, 0, 0, 0) if golden_on else (0,) * 7,
+            ref_slots=_ref_slots(golden_on),
             render_size=rs, tile_rows_log2=trl2,
             lf_level=lfy, lf_level_uv=lfuv, cdef=cdef_hdr, **lr_kw)
         hdr.byte_align()

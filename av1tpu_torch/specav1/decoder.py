@@ -1,5 +1,6 @@
 # Copied from av1tpu/specav1/decoder.py (without the uniform-grid deblocking
-# shortcut, which reaches a JAX module).
+# shortcut, which reaches a JAX module; departure: it keeps RefOrderHint per
+# slot for the header parser's RefFrameSignBias).
 """Top-level spec-AV1 decoder: temporal units -> frames.
 
 Decodes what the port encodes: KEY and INTER frames, one or two
@@ -27,6 +28,7 @@ class Decoder:
         self.seq: headers.SequenceHeader | None = None
         self.ref_frames: list = [None] * 8
         self.ref_slot_meta: list = [None] * 8  # (planes, width, height)
+        self.ref_order_hint: list = [0] * 8
 
     def decode_tu(self, tu: bytes) -> list:
         """Decode one temporal unit; returns list of (y, u, v) planes."""
@@ -46,7 +48,8 @@ class Decoder:
     def _decode_frame_obu(self, payload: bytes) -> list:
         assert self.seq is not None, "no sequence header seen"
         seq = self.seq
-        hdr = headers.parse_frame_header(payload, seq)
+        hdr = headers.parse_frame_header(payload, seq,
+                                         ref_order_hint=self.ref_order_hint)
         if hdr.show_existing_frame:
             planes, w, h = self.ref_slot_meta[hdr.frame_to_show_map_idx]
             return [self._crop_dims(planes, w, h)]
@@ -91,8 +94,10 @@ class Decoder:
         # spec clamps inter reads against FrameWidth/Height, not the
         # decoder's internal SB padding
         cropped = self._crop_dims(full, hdr.frame_width, hdr.frame_height)
+        self.ref_order_hint = list(hdr.ref_order_hint)
         for i in range(8):
             if hdr.refresh_frame_flags & (1 << i):
+                self.ref_order_hint[i] = hdr.order_hint
                 self.ref_frames[i] = cropped
                 self.ref_slot_meta[i] = (cropped, hdr.frame_width,
                                          hdr.frame_height)

@@ -1,4 +1,5 @@
-# Copied from av1tpu/specav1/headers.py.
+# Copied from av1tpu/specav1/headers.py (one departure: the parser keeps
+# RefOrderHint per slot and derives RefFrameSignBias, spec 5.9.2 / 7.12).
 """AV1 sequence + frame header syntax (spec §5.5, §5.9), parse and state.
 
 Implements uncompressed_header() faithfully enough to decode libaom-
@@ -270,6 +271,11 @@ class FrameHeader:
     superres_denom: int = SUPERRES_NUM
     allow_intrabc: int = 0
     ref_frame_idx: list = field(default_factory=lambda: [0] * 7)
+    # RefOrderHint after this header (the slots' hints it was parsed
+    # against, as error_resilient_mode may restate them) and
+    # RefFrameSignBias, indexed by reference frame (LAST_FRAME = 1)
+    ref_order_hint: list = field(default_factory=lambda: [0] * 8)
+    ref_frame_sign_bias: list = field(default_factory=lambda: [0] * 8)
     allow_high_precision_mv: int = 0
     interpolation_filter: int = 0
     is_filter_switchable: int = 0
@@ -346,12 +352,27 @@ def _read_delta_q(b: BitReader) -> int:
     return 0
 
 
+def get_relative_dist(seq: SequenceHeader, a: int, b: int) -> int:
+    """Spec get_relative_dist: the signed distance from order hint b to
+    a, modulo the hints' bit width."""
+    if not seq.enable_order_hint:
+        return 0
+    diff = a - b
+    m = 1 << (seq.order_hint_bits - 1)
+    return (diff & (m - 1)) - (diff & m)
+
+
 def parse_frame_header(payload: bytes, seq: SequenceHeader,
-                       pos_bits: int = 0) -> FrameHeader:
+                       pos_bits: int = 0,
+                       ref_order_hint=None) -> FrameHeader:
     """Parse uncompressed_header(); returns header with header_bits set
-    to the position just after (before byte_alignment for OBU_FRAME)."""
+    to the position just after (before byte_alignment for OBU_FRAME).
+    ref_order_hint: the decoder's RefOrderHint per slot (None: all 0),
+    from which an inter frame's RefFrameSignBias is derived."""
     b = BitReader(payload, pos_bits)
     h = FrameHeader()
+    if ref_order_hint is not None:
+        h.ref_order_hint = list(ref_order_hint)
     id_len = seq.delta_frame_id_length + seq.additional_frame_id_length
     if seq.reduced_still_picture_header:
         h.frame_type = KEY_FRAME
@@ -428,8 +449,8 @@ def parse_frame_header(payload: bytes, seq: SequenceHeader,
         else:
             h.refresh_frame_flags = b.f(8)
         if h.error_resilient_mode and seq.enable_order_hint:
-            for _ in range(NUM_REF_FRAMES):
-                b.f(seq.order_hint_bits)  # ref_order_hint
+            for i in range(NUM_REF_FRAMES):
+                h.ref_order_hint[i] = b.f(seq.order_hint_bits)
         frame_refs_short_signaling = 0
         if seq.enable_order_hint:
             frame_refs_short_signaling = b.f(1)
@@ -440,6 +461,10 @@ def parse_frame_header(payload: bytes, seq: SequenceHeader,
                 h.ref_frame_idx[i] = b.f(3)
             if seq.frame_id_numbers_present:
                 b.f(seq.delta_frame_id_length)  # delta_frame_id_minus_1
+        for i in range(REFS_PER_FRAME):
+            hint = h.ref_order_hint[h.ref_frame_idx[i]]
+            h.ref_frame_sign_bias[1 + i] = int(
+                get_relative_dist(seq, hint, h.order_hint) > 0)
         if h.frame_size_override and not h.error_resilient_mode:
             # frame_size_with_refs: found_ref per ref
             found = False

@@ -1,5 +1,9 @@
-# Copied from av1tpu/specav1/mvrefs.py (one departure, marked where it is:
-# the frame-edge clamp of the MV candidates).
+# Copied from av1tpu/specav1/mvrefs.py (two departures from the original's
+# bytes, marked where they are: the frame-edge clamp of the MV candidates,
+# and the extra search's sign bias, spec 7.10.2.12).  The sign bias has no
+# other use in the streams the port writes: reference_select 0 (no compound
+# stack, no skip mode), enable_ref_frame_mvs 0 (no temporal or projected
+# MVs) and enable_jnt_comp 0 (no distance weights).
 """Spec-AV1 motion-vector prediction: the MV stack + mode contexts
 (spec §7.10.2 "find MV stack", following libaom's setup_ref_mv_list).
 
@@ -79,6 +83,7 @@ class MvStackResult:
     new_mv_ctx: int
     ref_mv_ctx: int
     zero_mv_ctx: int
+    flips: int = 0       # extra-search candidates negated for sign bias
 
     def drl_ctx(self, idx: int) -> int:
         w = self.weights
@@ -254,8 +259,11 @@ def _scan_point(st, grid, mi_row, mi_col, dr, dc, ref_frame, tile,
 
 
 def find_mv_stack(grid: MvGrid, mi_row: int, mi_col: int, bw4: int,
-                  bh4: int, ref_frame: int, tile: tuple) -> MvStackResult:
-    """tile = (row_start, row_end, col_start, col_end) in mi units."""
+                  bh4: int, ref_frame: int, tile: tuple,
+                  sign_bias=None) -> MvStackResult:
+    """tile = (row_start, row_end, col_start, col_end) in mi units;
+    sign_bias: the frame's RefFrameSignBias, indexed by reference frame
+    (None: all 0)."""
     t_r0, t_r1, t_c0, t_c1 = tile
     st = _Ctx()
     up_available = mi_row > t_r0
@@ -350,18 +358,26 @@ def find_mv_stack(grid: MvGrid, mi_row: int, mi_col: int, bw4: int,
         ln = nr
 
     # single-ref extension when short (spec 7.10.2.12 extra search):
-    # sweep the immediate row/col again accepting ANY inter ref
-    # (sign-flip for opposite-direction refs; all our refs share
-    # direction so the flip never triggers).  Both passes walk at most
-    # num4x4 = min(w4, h4) units — NOT w4/h4 per pass (round-3 fix:
-    # fuzz seed 30, a 32x16 NEARMV whose ALTREF donor sat at column
-    # offset 6 was adopted by us but not by libaom).
+    # sweep the immediate row/col again accepting ANY inter ref, its
+    # vector negated where the ref's sign bias differs from ref_frame's
+    # (departure: the original never negates, which a GOLDEN key 65 or
+    # more frames back, a future frame to 7-bit order hints, breaks).
+    # Both passes walk at most num4x4 = min(w4, h4) units — NOT w4/h4
+    # per pass (round-3 fix: fuzz seed 30, a 32x16 NEARMV whose ALTREF
+    # donor sat at column offset 6 was adopted by us but not by libaom).
+    flips = 0
     if refmv_count < MAX_MV_REF_CANDIDATES:
+        bias = sign_bias if sign_bias is not None else (0,) * 8
+
         def process_single(cr, cc):
+            nonlocal flips
             cand_ref = int(grid.ref[cr, cc])
             if cand_ref <= INTRA_FRAME:
                 return
             mv = (int(grid.mv_r[cr, cc]), int(grid.mv_c[cr, cc]))
+            if bias[cand_ref] != bias[ref_frame]:
+                mv = (-mv[0], -mv[1])
+                flips += 1
             for m in mvs:
                 if m == mv:
                     return
@@ -403,7 +419,7 @@ def find_mv_stack(grid: MvGrid, mi_row: int, mi_col: int, bw4: int,
         mvs[i] = (min(max(r, lo_r), hi_r), min(max(c, lo_c), hi_c))
 
     return MvStackResult(mvs, weights, refmv_count, new_mv_ctx,
-                         ref_mv_ctx, zero_mv_ctx)
+                         ref_mv_ctx, zero_mv_ctx, flips)
 
 
 # ---------------------------------------------------------------------------

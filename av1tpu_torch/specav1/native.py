@@ -1,5 +1,6 @@
 # Copied from av1tpu/specav1/native.py (without the CDF read-back, which the
-# port does not use).
+# port does not use; departure: inter tiles take the frame's
+# RefFrameSignBias and return the writer's block and negation counts).
 """ctypes surface for the native spec-AV1 tile writer (spec_tile.cc).
 
 The C++ writer walks a whole tile per call (the Python TileWriter costs
@@ -62,6 +63,8 @@ def _lib() -> ctypes.CDLL:
         lib.stw_encode_inter32.restype = ctypes.c_int64
         lib.stw_set_tile_row.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                          ctypes.c_int]
+        lib.stw_set_sign_bias.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.stw_counts.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.stw_set_lr.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_int,
                                    ctypes.c_void_p, ctypes.c_void_p,
@@ -166,18 +169,22 @@ def _pool():
 def encode_tile_rows(kind: str, qindex: int, mi_cols: int, mi_rows: int,
                      spans: list, grid_args: tuple, ylv, ulv, vlv,
                      strip_skip=None, lr=None, angles=None,
-                     split3=None, key_split5=None) -> list:
+                     split3=None, key_split5=None, sign_bias=None,
+                     counts=None) -> list:
     """Encode one spec tile per (mi_row0, mi_row1) span, in parallel
     (the C++ walker releases the GIL).  grid_args: the per-frame grid
     arrays of encode_intra32_tile / encode_inter32_tile; each tile gets
     the matching row slice.  strip_skip goes to the LAST tile (the 16px
     bottom strip lives there).  angles: per-block luma angle_delta grid
     (key frames).  split3: (splits, mvs16, skips16) grids for the
-    inter 32->16 SPLIT path.  Returns the list of per-tile bytes."""
+    inter 32->16 SPLIT path.  sign_bias and counts: as
+    encode_inter32_tile's, over all the tiles.  Returns the list of
+    per-tile bytes."""
     enc = encode_intra32_tile if kind == "key" else encode_inter32_tile
+    tile_counts = [np.zeros(3, np.int64) for _ in spans]
 
-    def one(span):
-        mi0, mi1 = span
+    def one(j):
+        mi0, mi1 = spans[j]
         g0, g1 = mi0 // 8, (mi1 + 7) // 8
         sliced = tuple(g[g0:g1] for g in grid_args)
         ss = strip_skip if mi1 == spans[-1][1] else None
@@ -190,14 +197,21 @@ def encode_tile_rows(kind: str, qindex: int, mi_cols: int, mi_rows: int,
             kw["splits"] = split3[0][g0:g1]
             kw["mvs16"] = split3[1][g0:g1]
             kw["skips16"] = split3[2][g0:g1]
+        if kind != "key":
+            kw["sign_bias"] = sign_bias
+            kw["counts"] = tile_counts[j]
         return enc(qindex, mi_cols, mi1 - mi0, *sliced,
                    ylv[mi0 * 4:], ulv[mi0 * 2:], vlv[mi0 * 2:],
                    tile_row0=mi0, frame_mi_rows=mi_rows, strip_skip=ss,
                    lr=lr, **kw)
 
     if len(spans) == 1:
-        return [one(spans[0])]
-    return list(_pool().map(one, spans))
+        out = [one(0)]
+    else:
+        out = list(_pool().map(one, range(len(spans))))
+    if counts is not None:
+        counts += sum(tile_counts)
+    return out
 
 
 def encode_inter32_tile(qindex: int, mi_cols: int, mi_rows: int,
@@ -209,7 +223,9 @@ def encode_inter32_tile(qindex: int, mi_cols: int, mi_rows: int,
                         strip_skip: np.ndarray | None = None,
                         lr=None, splits: np.ndarray | None = None,
                         mvs16: np.ndarray | None = None,
-                        skips16: np.ndarray | None = None) -> bytes:
+                        skips16: np.ndarray | None = None,
+                        sign_bias=None,
+                        counts: np.ndarray | None = None) -> bytes:
     """Emit one spec tile for a 32x32-grid single-ref inter frame with
     optional per-block 32->16 SPLIT.
 
@@ -221,7 +237,11 @@ def encode_inter32_tile(qindex: int, mi_cols: int, mi_rows: int,
     from the same level planes at quadrant offsets).
     The inter Y mode is derived from the MV stack in native code.
     tile_row0/frame_mi_rows place this tile as one row of a taller
-    frame (MV clamping is frame-relative)."""
+    frame (MV clamping is frame-relative).
+    sign_bias: the frame's RefFrameSignBias, 8 ints indexed by reference
+    frame (None: all 0).  counts: an int64 array of 3 to which the
+    tile's inter blocks, GOLDEN blocks and extra-search candidates
+    negated for their sign bias are added."""
     lib = _lib()
     gh, gw = (mi_rows + 7) // 8, (mi_cols + 7) // 8
 
@@ -249,6 +269,10 @@ def encode_inter32_tile(qindex: int, mi_cols: int, mi_rows: int,
         if tile_row0 or frame_mi_rows:
             lib.stw_set_tile_row(w, tile_row0,
                                  frame_mi_rows or mi_rows)
+        if sign_bias is not None:
+            sb = np.ascontiguousarray(np.asarray(sign_bias, np.int32))
+            assert sb.shape == (8,), sb.shape
+            lib.stw_set_sign_bias(w, sb.ctypes.data_as(ctypes.c_void_p))
         if lr is not None:
             # (unit_size, choice (urows, ucols) int32, taps (N, 6):
             # per-row (v0, v1, v2, h0, h1, h2))
@@ -292,6 +316,10 @@ def encode_inter32_tile(qindex: int, mi_cols: int, mi_rows: int,
             if splits is not None else None)
         if sz < 0:
             raise RuntimeError("tile buffer too small")
+        if counts is not None:
+            got = np.zeros(3, np.int64)
+            lib.stw_counts(w, got.ctypes.data_as(ctypes.c_void_p))
+            counts += got
         return out[:sz].tobytes()
     finally:
         lib.stw_destroy(w)

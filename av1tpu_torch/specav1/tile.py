@@ -1,6 +1,7 @@
-# Copied from av1tpu/specav1/tile.py (two departures, marked where they
-# are: blocks that overhang the frame edge; held to libaom by
-# tests/test_torch_host.py).
+# Copied from av1tpu/specav1/tile.py (three departures, marked where they
+# are: two for blocks that overhang the frame edge, and the MV stack's
+# RefFrameSignBias; held to libaom by tests/test_torch_host.py and
+# tests/test_torch_signbias.py).
 """AV1 tile decoding: partition tree, mode info, residual coefficients,
 block reconstruction (spec §5.11, §7.11-7.13).
 
@@ -472,7 +473,8 @@ class TileDecoder:
                     ref_frame = (mvrefs.LAST2_FRAME if b4
                                  else mvrefs.LAST_FRAME)
             stack = mvrefs.find_mv_stack(self.mvgrid, r, c, w4, h4,
-                                         ref_frame, tile)
+                                         ref_frame, tile,
+                                         hdr.ref_frame_sign_bias)
             # inter mode tree
             if self.r.read_adapt(fc.newmv[stack.new_mv_ctx], 2) == 0:
                 y_mode = NEWMV

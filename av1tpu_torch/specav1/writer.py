@@ -1,4 +1,6 @@
-# Copied from av1tpu/specav1/writer.py.
+# Copied from av1tpu/specav1/writer.py (two departures in TileWriter's MV
+# stacks, marked where they are: the frame's RefFrameSignBias, and the MV
+# grid keeping a block's coded size, as the decoder copy does).
 """Spec-AV1 bitstream writer: sequence and frame headers, tile rows
 and the tile group, and the Python tile-symbol writer.
 
@@ -18,11 +20,28 @@ import ctypes
 import numpy as np
 
 from av1tpu_torch.encoder import entropy
-from av1tpu_torch.specav1 import mvrefs, recon
+from av1tpu_torch.specav1 import headers, mvrefs, recon
 from av1tpu_torch.specav1 import tile as T
 from av1tpu_torch.specav1 import obu as obu_mod
 from av1tpu_torch.specav1.bits import BitWriter
 from av1tpu_torch.specav1.cdfs import FrameContext
+
+
+# the order hints write_sequence_header signals (order_hint_bits_minus_1 6)
+_SEQ_HINTS = headers.SequenceHeader(enable_order_hint=1, order_hint_bits=7)
+
+
+def ref_frame_sign_bias(order_hint: int, slot_hints,
+                        ref_slots=(0,) * 7) -> tuple:
+    """RefFrameSignBias, indexed by reference frame (LAST_FRAME = 1), that
+    a decoder derives for an inter frame written with ``order_hint`` and
+    ``ref_slots`` (its ref_frame_idx) from the slots' order hints
+    (``slot_hints``, 8): 1 where the slot's frame is a future one to the
+    7-bit hints (spec 5.9.2)."""
+    return (0,) + tuple(
+        int(headers.get_relative_dist(_SEQ_HINTS, slot_hints[slot],
+                                      order_hint) > 0)
+        for slot in ref_slots)
 
 
 def write_sequence_header(w: int, h: int, *, bit_depth: int = 8,
@@ -326,8 +345,11 @@ class TileWriter:
     """Symbol emitter mirroring TileDecoder's context model."""
 
     def __init__(self, fc: FrameContext, mi_cols: int, mi_rows: int,
-                 base_q_idx: int, reduced_tx_set: int = 0):
+                 base_q_idx: int, reduced_tx_set: int = 0,
+                 sign_bias=None):
         self.lib = entropy.load_library()
+        # the frame's RefFrameSignBias by reference frame (None: all 0)
+        self.sign_bias = sign_bias
         self.fc = fc
         self.mi_cols, self.mi_rows = mi_cols, mi_rows
         self.base_q_idx = base_q_idx
@@ -491,7 +513,7 @@ class TileWriter:
     def mv_stack(self, r: int, c: int, bsize: int, ref_frame: int):
         w4, h4 = T.BLOCK_SIZES[bsize]
         return mvrefs.find_mv_stack(self.mvgrid, r, c, w4, h4, ref_frame,
-                                    self.tile)
+                                    self.tile, self.sign_bias)
 
     def _skip_and_inter(self, r, c, skip, is_inter):
         ctx = (int(self.skips[r - 1, c]) if r > 0 else 0) + \
@@ -636,7 +658,10 @@ class TileWriter:
         self.y_modes[r:r + bh4, c:c + bw4] = store_y_mode
         self.mi_size[r:r + bh4, c:c + bw4] = bsize
         self.filters[r:r + bh4, c:c + bw4] = interp
-        self.mvgrid.set_block(r, c, bh4, bw4, ref_frame, mv, is_newmv)
+        # the block's coded size, as the decoder copy keeps it (departure:
+        # the original keeps the visible part, which a block that
+        # overhangs the frame's edge gives other MV stack weights)
+        self.mvgrid.set_block(r, c, h4, w4, ref_frame, mv, is_newmv)
         if not getattr(self, "_var_tx_block", False):
             # uniform square tx == block dims for this writer's sizes
             # (spec compute_tx_size ctx update; skip-inter records

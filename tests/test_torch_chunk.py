@@ -88,13 +88,16 @@ def test_pack_chunk_copy_and_torch_unpack_match_jax():
                 for a, b in zip(got, want):
                     assert a.dtype == b.dtype
                     np.testing.assert_array_equal(a, b)
-                # over the cap: both give up
+                # over the cap: both give up (the port at the first frame
+                # over it); at the cap: both pack, alike
                 n_exc = int((got[1] < got[1].max()).sum())
-                if n_exc:
-                    assert io_pack.pack_chunk(chunk, base, cap=n_exc - 1,
-                                              bit_depth=bd) is None
-                    assert j_io_pack.pack_chunk(chunk, base, cap=n_exc - 1,
-                                                bit_depth=bd) is None
+                for c in sorted({0, n_exc // 2, max(n_exc - 1, 0), n_exc}):
+                    a = io_pack.pack_chunk(chunk, base, cap=c, bit_depth=bd)
+                    b = j_io_pack.pack_chunk(chunk, base, cap=c,
+                                             bit_depth=bd)
+                    assert (a is None) == (b is None) == (c < n_exc)
+                    for x, y in zip(a or (), b or ()):
+                        np.testing.assert_array_equal(x, y)
                 nib, ep, ev, modes = got
                 seen_modes.update(int(m) for m in modes)
                 ev_t = ev.view(np.int16) if ev.dtype == np.uint16 else ev
